@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA megakernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, renders the main path
-(scene_2 and a lit room at 1920x1080, default physics, a 2048^2 packed
-cubemap) through the entry points a user would call, runs the command line,
-and times the kernel. Every phase prints one JSON line; any phase that fails
-raises and the run exits non-zero. Needs one CUDA device and nvcc; imports
-nothing of JAX. The last line of standard output is
+Builds the CUDA megakernels (forward and backward) from the sources in this
+checkout, holds each against its plain PyTorch version on the card, renders
+the serving path (scene_2 and a lit room at 1920x1080, default physics, a
+2048^2 packed cubemap) through the entry points a user would call, runs the
+command line, then drives the training path at the same size (the gradient
+of a frame's sum, five steps of `fit`, the invert app) and times the kernels.
+Every phase prints one JSON line with the seconds it took (about 70 in all on
+an H100, the kernels' build included); any phase that fails raises and the
+run exits non-zero. Needs one CUDA device and nvcc; imports nothing of JAX. The
+last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import re
@@ -28,7 +33,9 @@ import time
 import torch
 
 from ray_tracing_tpu_torch.apps.cli import main as cli_main
+from ray_tracing_tpu_torch.apps.invert import main as invert_main
 from ray_tracing_tpu_torch.config import RenderConfig
+from ray_tracing_tpu_torch.diff.inverse import SCENE_PARAM_FIELDS, fit
 from ray_tracing_tpu_torch.io.image import png_size
 from ray_tracing_tpu_torch.kernels import build
 from ray_tracing_tpu_torch.kernels import megakernel as mk
@@ -49,10 +56,23 @@ SKY_SIZE = 2048
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# Agreement of the kernel with its plain version (same seed, same card).
+# Agreement of the forward kernel with its plain version (same seed, same card).
 ATOL = 1e-4
 SHARE = 0.995
 MEAN_TOL = 1e-3
+
+# Agreement of the backward kernel with its plain version (same records, same
+# cotangents): per entry |kernel - plain| <= rtol * |plain| + atol * max|plain
+# of that column| for the scene rows, and the same with the largest entry of
+# the pack for the camera. The kernel sums with float atomics in an order that
+# changes from run to run, the plain version with PyTorch's reductions.
+BWD_ROWS_RTOL, BWD_ROWS_ATOL = 2e-3, 2e-4
+BWD_CAM_RTOL, BWD_CAM_ATOL = 2e-2, 5e-4
+# The plain backward runs over row slices of the frame and adds their
+# gradients: smaller slices keep its autograd graph small and its float32
+# sums short (more slices do not make it slower: it is bound by bytes).
+TRAIN_SLICES = 4
+FIT_STEPS = 5
 
 # Float operations (add, sub, mul, div, sqrt each count 1; comparisons,
 # selects and the integer work of the generator count 0), counted by hand
@@ -68,10 +88,29 @@ F_LIGHT_BLEND = 19  # to_light 3, mean 4, light blend 12
 F_ACCEPT = 5        # per shadow sample of an active lane: rand . normal
 F_SHADOW_RAY = 41   # per shadow ray cast: direction 19, ray 22
 F_SHADOW_SUM = 4    # per accepted sample of an active lane
+# and from csrc/megakernel_bwd.cu, per bounce a path is alive in and hits:
+F_ADJ_COMMON = 50   # exit state 6, emission 9, hit point 8, normalize(rd) 27
+F_ADJ_LIGHT = 27    # light blend
+F_ADJ_BRANCH = 57   # the specular branch (the diffuse one is 21)
+F_ADJ_SPHERE = 113  # a sphere hit: normal 33 and root 80
+F_ADJ_CUBE = 12     # a box hit: the face's one slab quotient
+F_ADJ_ROUTE = 15    # the sum over pixels itself, one add per row entry
+F_ADJ_MISS = 27     # a path that leaves: normalize(rd) for the sky direction
+F_ADJ_CAMERA = 30   # camera ray
+
+
+_last_emit = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line per phase; phase_seconds is the host's time since the
+    line before it, so the lines say where the script's time goes."""
+    global _last_emit
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, "phase_seconds": round(now - _last_emit, 2), **kw}),
+          flush=True)
+    _last_emit = now
 
 
 def phase_device() -> dict:
@@ -85,14 +124,14 @@ def phase_device() -> dict:
     return {"kind": name, "smi": smi}
 
 
-def phase_build() -> None:
-    info = build.build_library(mk.KERNEL_LIBRARY, verbose=True)
-    kernels = {}
-    current = None
-    for line in info["log"].splitlines():
+def _ptxas_report(log: str) -> dict:
+    """ptxas -v per kernel: registers, stack frame (local memory), spills."""
+    kernels, current = {}, None
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = "record" if "ILb1E" in m.group(1) else "plain"
+            current = ("bwd" if "bwd_kernel" in m.group(1) else "fwd") + \
+                      ("_b1" if "ILb1E" in m.group(1) else "_b0")
             kernels[current] = {"symbol": m.group(1)}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current:
@@ -101,11 +140,29 @@ def phase_build() -> None:
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and current:
             kernels[current].update(registers=int(m.group(1)), static_smem=int(m.group(2) or 0))
-    if set(kernels) != {"plain", "record"}:
-        raise RuntimeError(f"expected two instantiations in the ptxas log:\n{info['log']}")
-    mk._kernel_function()  # loads the library just built
-    emit("build", seconds=round(info["seconds"], 2), flags=" ".join(build.NVCC_FLAGS),
-         kernels=kernels)
+    return kernels
+
+
+def phase_build() -> None:
+    """Both libraries, one nvcc each, started together."""
+    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        infos = list(pool.map(lambda n: build.build_library(n, verbose=True), names))
+    wall = time.perf_counter() - t0
+    kernels = {}
+    for info in infos:
+        kernels.update(_ptxas_report(info["log"]))
+    # fwd_b0: plain forward, fwd_b1: recording; bwd_b0: backward, bwd_b1: the
+    # instantiation that also writes its replayed primal planes
+    if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_b0", "bwd_b1"}:
+        raise RuntimeError("expected four kernels in the ptxas logs:\n"
+                           + "\n".join(i["log"] for i in infos))
+    mk._kernel_function()  # load the libraries just built
+    mk._bwd_kernel_function()
+    emit("build", seconds=round(wall, 2),
+         seconds_each={n: round(i["seconds"], 2) for n, i in zip(names, infos)},
+         flags=" ".join(build.NVCC_FLAGS), kernels=kernels)
 
 
 def make_scenes(device) -> dict[str, Scene]:
@@ -119,14 +176,17 @@ def make_scenes(device) -> dict[str, Scene]:
 
 class WorkCounter(mk.DirectTracer):
     """A tracer that counts, per bounce, the lanes alive at its start, the
-    lanes that then hit an object (active) and the shadow samples that
-    active lanes accept: the work an input needs, for the roofline bound."""
+    lanes that then hit an object (active), those of them that hit a sphere,
+    and the shadow samples that active lanes accept: the work an input
+    needs, for the roofline bound."""
 
     def __init__(self, scene, draws):
         super().__init__(scene)
         self.draws = draws
         self.live = None
-        self.alive, self.active, self.shadow_rays = [], [], []
+        self.alive, self.active, self.active_spheres, self.shadow_rays = [], [], [], []
+        self.is_sphere = torch.tensor([t == OBJ_SPHERE for t in scene.obj_type],
+                                      device=scene.packed_rows().device)
 
     def trace(self, ro, rd):
         h = super().trace(ro, rd)
@@ -134,6 +194,7 @@ class WorkCounter(mk.DirectTracer):
         self.alive.append(int(live.sum()))
         self.live = live & h.hit
         self.active.append(int(self.live.sum()))
+        self.active_spheres.append(int((self.live & self.is_sphere[h.obj.clamp(min=0)]).sum()))
         self.normal = h.normal
         return h
 
@@ -155,7 +216,7 @@ def count_work(job, seed: int) -> dict:
     mk.tile_physics(view, job.cam_pack, u, v, draws, job.config,
                     (job.height, job.width), tracer=counter)
     return {"alive": counter.alive, "active": counter.active,
-            "shadow_rays": counter.shadow_rays}
+            "active_spheres": counter.active_spheres, "shadow_rays": counter.shadow_rays}
 
 
 def agreement(planes, recs, want_p, want_r) -> dict:
@@ -226,6 +287,141 @@ def phase_kernel_vs_plain(scenes, camera) -> dict:
     return at_full
 
 
+def random_cotangents(job, seed: int = 5):
+    gen = torch.Generator(device=job.rows.device).manual_seed(seed)
+    return torch.rand((10, job.height, job.width), generator=gen, device=job.rows.device) * 2 - 1
+
+
+def plain_backward(scene, camera, cfg, width, height, seed, records, cot, slices: int = 1,
+                   row0: int = 0, norm_height: int | None = None):
+    """The plain version of the backward kernel over the frame, in `slices`
+    row slices whose gradients are added (the frame's gradient is the sum
+    over its pixels; at 1920x1080 one autograd graph of the whole frame
+    would keep thousands of 8 MB intermediates). Returns (replayed planes,
+    g_rows, g_cam)."""
+    norm_height = norm_height or height
+    h = height // slices
+    if h * slices != height:
+        raise ValueError(f"{height} rows do not split into {slices} slices")
+    planes, g_rows, g_cam = [], 0, 0
+    for k in range(slices):
+        job = mk.make_tile_job(scene, camera, width, h, cfg, norm_height=norm_height,
+                               aspect=width / norm_height)
+        rows = slice(k * h, (k + 1) * h)
+        u, v, draws = mk._sample_inputs(job, seed, row0 + k * h)
+        p, r, c = mk.replay_vjp(job, u, v, draws, records[:, rows].contiguous(),
+                                cot[:, rows].contiguous())
+        planes.append(p)
+        g_rows, g_cam = g_rows + r, g_cam + c
+    return torch.cat(planes, dim=1), g_rows, g_cam
+
+
+def gradient_agreement(got, want, rtol, atol, scale) -> dict:
+    """|got - want| <= rtol * |want| + atol * scale per entry; raises when an
+    entry is outside. `scale` broadcasts against the tensors."""
+    if not torch.isfinite(got).all() or not torch.isfinite(want).all():
+        raise RuntimeError("a gradient is not finite")
+    err = (got - want).abs()
+    allowed = rtol * want.abs() + atol * scale
+    res = {"max_abs_err": float(err.max()),
+           "worst_err_over_allowed": float((err / allowed.clamp(min=1e-30)).max()),
+           "max_rel_err": float((err / (want.abs() + 1e-3 * scale).clamp(min=1e-30)).max())}
+    if not bool((err <= allowed).all()):
+        raise RuntimeError(f"backward kernel disagrees with its plain version: {res}")
+    return res
+
+
+def compare_bwd(scene, camera, cfg, width, height, seed, row0=0, norm_height=None,
+                slices=1) -> dict:
+    """The recording forward's index planes, then the backward kernel (twice,
+    once through the instantiation that also writes its replayed planes)
+    against its plain version on the same records and seeded random
+    cotangents."""
+    job = mk.make_tile_job(scene, camera, width, height, cfg, norm_height=norm_height)
+    planes, records = mk.run_tiles(job, seed, row0, record=True)
+    cot = random_cotangents(job)
+    g_rows, g_cam, primal = mk._launch_bwd(job, seed, row0, records, cot, want_primal=True)
+    again_rows, again_cam = mk.run_bwd(job, seed, row0, records, cot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_planes, want_rows, want_cam = plain_backward(
+        scene, camera, cfg, width, height, seed, records, cot, slices, row0, norm_height)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    col_scale = want_rows.abs().amax(dim=0, keepdim=True)
+    res = {"rows": gradient_agreement(g_rows, want_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale),
+           "camera": gradient_agreement(g_cam, want_cam, BWD_CAM_RTOL, BWD_CAM_ATOL,
+                                        want_cam.abs().max())}
+    gradient_agreement(again_rows, want_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale)
+    # float atomics: two identical launches differ in the order of their sums
+    res["run_to_run_max_abs"] = float(torch.maximum((g_rows - again_rows).abs().max(),
+                                                    (g_cam - again_cam).abs().max()))
+    res["largest_gradient"] = float(want_rows.abs().max())
+    # exactly zero: the type-tag column, the unused pack entries, and the
+    # rows of objects that no index plane names
+    named = torch.zeros(scene.num_objects, dtype=torch.bool, device=records.device)
+    named[records[records >= 0].unique().long()] = True
+    if g_rows[:, 15].abs().max() != 0 or g_cam[14:].abs().max() != 0 \
+            or g_rows[~named].abs().sum() != 0:
+        raise RuntimeError("the backward kernel wrote where nothing can have a gradient")
+    res["rows_no_pixel_hit"] = int((~named).sum())
+    # forward and backward walk the same paths: the replayed planes are the
+    # recording forward's, bit for bit, in the kernel and in the plain version
+    res["kernel_primal_equal"] = bool(primal.equal(planes))
+    res["plain_primal_equal"] = bool(plain_planes.equal(planes))
+    res["plain_ms"] = plain_ms
+    return res
+
+
+def phase_bwd_kernel_vs_plain(scenes, camera) -> tuple[list, dict]:
+    results = []
+    many_lights = dataclasses.replace(scenes["sixty_two_lights"], emissive=None)
+    cases = {"scene_2": scenes["scene_2"], "room": scenes["room"],
+             "sixty_two_lights_full_scan": many_lights}
+    for name, scene in cases.items():
+        for jitter in (False, True):
+            cfg = RenderConfig(pixel_jitter=jitter)
+            results.append({"scene": name, "jitter": jitter, "size": [SMALL_W, SMALL_H],
+                            **compare_bwd(scene, camera, cfg, SMALL_W, SMALL_H, seed=21 + jitter)})
+    # more bounces than the kernel keeps entry states for (SAVED_BOUNCES = 16)
+    results.append({"scene": "room", "bounces": 20, "size": [SMALL_W, SMALL_H],
+                    **compare_bwd(scenes["room"], camera, RenderConfig(bounces=20),
+                                  SMALL_W, SMALL_H, seed=23)})
+    # a row slice: rows 48..95 of the 144-row frame
+    results.append({"scene": "room", "row0": 48, "size": [SMALL_W, 48],
+                    **compare_bwd(scenes["room"], camera, RenderConfig(), SMALL_W, 48, seed=24,
+                                  row0=48, norm_height=SMALL_H)})
+    # 1024 rows: 128 KB of dynamic shared memory per block
+    big = Scene.from_objects(random_objects(1024, seed=2, lights=(7,)), device=camera.device)
+    results.append({"scene": "1024_objects", "size": [64, 36],
+                    **compare_bwd(big, camera, RenderConfig(bounces=2, shadow_samples=1),
+                                  64, 36, seed=25)})
+    # the shapes the training path gives the kernel
+    at_full = {}
+    for name in ("scene_2", "room"):
+        res = compare_bwd(scenes[name], camera, RenderConfig(), WIDTH, HEIGHT, seed=17,
+                          slices=TRAIN_SLICES)
+        results.append({"scene": name, "size": [WIDTH, HEIGHT], "plain_slices": TRAIN_SLICES, **res})
+        at_full[name] = res
+    emit("bwd_kernel_vs_plain",
+         criterion="|kernel - plain| <= rtol*|plain| + atol*max|plain of that column|",
+         rows=[BWD_ROWS_RTOL, BWD_ROWS_ATOL], camera=[BWD_CAM_RTOL, BWD_CAM_ATOL],
+         results=[{k: v for k, v in r.items() if not k.endswith("primal_equal")} for r in results])
+    return results, at_full
+
+
+def phase_stream_identity(results) -> None:
+    """The backward regenerates the forward's draws: its replayed primal
+    equals the recording forward's ten planes bit for bit over every frame
+    compared above, in the CUDA kernel and in its plain version."""
+    rows = [{"scene": r["scene"], "size": r["size"], "kernel": r["kernel_primal_equal"],
+             "plain": r["plain_primal_equal"]} for r in results]
+    if not all(r["kernel"] and r["plain"] for r in rows):
+        raise RuntimeError(f"a backward replay left the forward's paths: {rows}")
+    emit("stream_identity", frames=len(rows), all_bit_equal=True, results=rows)
+
+
 def phase_main_path(scenes, camera, sky) -> dict:
     cfg = RenderConfig()
     mk.reset_launch_counts()
@@ -255,8 +451,8 @@ def phase_main_path(scenes, camera, sky) -> dict:
         out[name] = {"image": img, "mean": float(img.mean()), "tiles": tiles,
                      "peak_bytes": torch.cuda.max_memory_allocated()}
     counts = dict(mk.launch_counts)  # read right after the main path
-    for k, v in counts.items():
-        if v < 1:
+    for k in ("megakernel_fwd", "megakernel_fwd_record"):
+        if counts[k] < 1:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
 
     report = {}
@@ -305,6 +501,143 @@ def phase_cli() -> None:
         emit("cli", seconds=round(seconds, 3), png=list(size), bytes=os.path.getsize(out))
 
 
+def with_leaves(scene, camera):
+    """(scene, camera, leaves) with every optimisable tensor a fresh leaf."""
+    s = {n: getattr(scene, n).detach().clone().requires_grad_() for n in SCENE_PARAM_FIELDS}
+    c = {n: getattr(camera, n).detach().clone().requires_grad_() for n in ("pos", "front", "up")}
+    leaves = {**s, **{"camera." + n: t for n, t in c.items()}}
+    return dataclasses.replace(scene, **s), dataclasses.replace(camera, **c), leaves
+
+
+def frame_gradient(scene, camera, sky, cfg, seed: int = 1, spp: int = SPP) -> dict:
+    """backward() of the sum of a WIDTHxHEIGHT frame of `spp` samples through
+    the kernels: the gradient of every leaf."""
+    scene_l, cam_l, leaves = with_leaves(scene, camera)
+    img = mk.render_image_cuda(scene_l, cam_l, WIDTH, HEIGHT, seed=seed, spp=spp, config=cfg,
+                               cubemap=sky)
+    img.sum().backward()
+    return {n: t.grad for n, t in leaves.items()}
+
+
+def plain_replay_tiles(job, seed: int, row0: int = 0):
+    """One sample's planes through the plain versions of both kernels, with
+    autograd's own graph back to the job's rows and camera pack: the plain
+    recording forward for the winner indices, then the plain fetch replay
+    (what run_bwd_plain differentiates)."""
+    with torch.no_grad():
+        _, records = mk.run_tiles_plain(job, seed, row0, record=True)
+    u, v, draws = mk._sample_inputs(job, seed, row0)
+    return mk.replay_planes(job, job.rows, job.cam_pack, u, v, draws, records), None
+
+
+def frame_gradient_plain(scene, camera, sky, cfg, seed: int = 1, spp: int = SPP) -> dict:
+    """The same gradient through the plain versions of both kernels, slice by
+    slice."""
+    scene_l, cam_l, leaves = with_leaves(scene, camera)
+    h = HEIGHT // TRAIN_SLICES
+    for k in range(TRAIN_SLICES):
+        job = mk.make_tile_job(scene_l, cam_l, WIDTH, h, cfg, norm_height=HEIGHT)
+        img = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h)
+        img.sum().backward()  # adds into the leaves' gradients
+    return {n: t.grad for n, t in leaves.items()}
+
+
+def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
+    cfg = RenderConfig()
+    mk.reset_launch_counts()
+    report = {}
+
+    # (a) the gradient of a frame's sum with respect to every leaf
+    grads = {}
+    for name in ("scene_2", "room"):
+        before = dict(mk.launch_counts)
+        torch.cuda.reset_peak_memory_stats()
+        grads[name] = frame_gradient(scenes[name], camera, sky, cfg)
+        torch.cuda.synchronize()
+        rose = {k: mk.launch_counts[k] - before[k] for k in before}
+        if rose != {"megakernel_fwd": 0, "megakernel_fwd_record": SPP, "megakernel_bwd_fetch": SPP}:
+            raise RuntimeError(f"{name}: launch counters rose by {rose}")
+        for leaf, g in grads[name].items():
+            if g is None or not torch.isfinite(g).all():
+                raise RuntimeError(f"{name}: gradient of {leaf} is missing or not finite")
+        report[name] = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+                        "albedo_grad_abs_sum": float(grads[name]["albedo"].abs().sum())}
+
+    # (b) five steps of fit on the room, albedo and position perturbed
+    fit_cfg = RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08)
+    room = scenes["room"]
+    with torch.no_grad():
+        target = mk.render_image_cuda(room, camera, WIDTH, HEIGHT, seed=99, spp=SPP,
+                                      config=fit_cfg, cubemap=sky)
+    gen = torch.Generator().manual_seed(0)
+    noise_a = 0.2 * torch.randn(room.albedo.shape, generator=gen)
+    noise_p = 0.05 * torch.randn(room.p0.shape, generator=gen)
+    start = dataclasses.replace(
+        room, albedo=(room.albedo + noise_a.to(room.device)).clamp(0.05, 1.0),
+        p0=room.p0 + noise_p.to(room.device))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    # the callback reads each loss, which waits for the step: a step's time
+    # is then the distance between two stamps
+    fitted, _, losses = fit(start, camera, target, scene_fields=("albedo", "p0"),
+                            steps=FIT_STEPS, lr=2e-2, spp=SPP, config=fit_cfg, cubemap=sky, seed=3,
+                            callback=lambda i, loss, params: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    if len(losses) != FIT_STEPS or not all(l == l and abs(l) != float("inf") for l in losses):
+        raise RuntimeError(f"fit: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"fit: the loss did not fall: {losses}")
+    moved = {f: float((getattr(fitted, f) - getattr(start, f)).abs().max()) for f in ("albedo", "p0")}
+    if not all(m > 0 for m in moved.values()):
+        raise RuntimeError(f"fit: a trained leaf did not move: {moved}")
+    report["fit"] = {"losses": losses, "moved_max_abs": moved,
+                     "first_step_ms": step_ms[0],  # takes in every kernel's first use
+                     "ms_per_step": statistics.median(step_ms[1:]),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    # (c) the invert app at its default size
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_file = os.path.join(tmp, "scene_2.txt")
+        with open(scene_file, "w") as f:
+            f.write(SCENE_2_TEXT)
+        t0 = time.perf_counter()
+        rc = invert_main(["--scene", scene_file])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"invert returned {rc}")
+        report["invert"] = {"seconds": round(time.perf_counter() - t0, 3)}
+
+    counts = dict(mk.launch_counts)  # read right after the training path
+    for k in ("megakernel_fwd_record", "megakernel_bwd_fetch"):
+        if counts[k] < 1:
+            raise RuntimeError(f"kernel {k} was not launched on the training path")
+
+    # (a) held against the plain versions, slice by slice, one sample deep:
+    # the plain backward takes seconds per sample, and a frame of SPP samples
+    # is the mean of SPP such frames (the kernel itself is held against its
+    # plain version at this shape in bwd_kernel_vs_plain)
+    for name in ("scene_2", "room"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one_sample = frame_gradient(scenes[name], camera, sky, cfg, spp=1)
+        plain = frame_gradient_plain(scenes[name], camera, sky, cfg, spp=1)
+        torch.cuda.synchronize()
+        worst = {}
+        for leaf, g in one_sample.items():
+            cam = leaf.startswith("camera.")
+            rtol, atol = (BWD_CAM_RTOL, BWD_CAM_ATOL) if cam else (BWD_ROWS_RTOL, BWD_ROWS_ATOL)
+            scale = plain[leaf].abs().max()
+            worst[leaf] = gradient_agreement(g, plain[leaf], rtol, atol, scale)["worst_err_over_allowed"]
+        report[name]["worst_err_over_allowed_by_leaf"] = worst
+        report[name]["plain_seconds"] = round(time.perf_counter() - t0, 2)
+        report[name]["plain_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit("train_path", size=[WIDTH, HEIGHT], spp=SPP, sky=[SKY_SIZE, SKY_SIZE], launches=counts,
+         plain_slices=TRAIN_SLICES, plain_spp=1, **report)
+    return counts, report
+
+
 def time_launches(fn, n: int, warmup: int = 3) -> float:
     """Median milliseconds of fn(i) over n launches, by CUDA events."""
     for i in range(warmup):
@@ -336,6 +669,34 @@ def time_frames(scene, camera, sky, cfg, n: int) -> float:
     return statistics.median(times[1:])
 
 
+def time_bwd(job, n: int, warmup: int = 3) -> tuple[float, float]:
+    """Median milliseconds of one backward launch over n launches with
+    distinct seeds, each on the index planes of its own forward: with random
+    cotangents, and with all-zero cotangents (every contribution is then
+    zero and no atomic add is made: what is left is the replay, the adjoint
+    and the shuffles)."""
+    recs = [mk.run_tiles(job, s, record=True)[1] for s in range(n + warmup)]
+    cot = random_cotangents(job)
+    return tuple(
+        time_launches(lambda s: mk.run_bwd(job, s % len(recs), 0, recs[s % len(recs)], c),
+                      n, warmup)
+        for c in (cot, torch.zeros_like(cot)))
+
+
+def time_fwd_bwd(scene, camera, sky, cfg, n: int) -> float:
+    """Median milliseconds per sample on the host's clock of a whole
+    differentiated frame (render, sum, backward) of SPP samples, up to the
+    end of the device's work."""
+    times = []
+    for i in range(n + 1):  # the first frame warms up and is dropped
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame_gradient(scene, camera, sky, cfg, seed=200 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / SPP)
+    return statistics.median(times[1:])
+
+
 def phase_timing(scenes, camera, sky) -> dict:
     cfg = RenderConfig()
     out = {}
@@ -348,10 +709,12 @@ def phase_timing(scenes, camera, sky) -> dict:
             "plain_record_ms": time_launches(
                 lambda s: mk.run_tiles_plain(job, s, record=True), 3, warmup=1),
         }
+        out[name]["bwd_kernel_ms"], out[name]["bwd_kernel_zero_cotangents_ms"] = time_bwd(job, 20)
         planes, _ = mk.run_tiles(job, 5)
         out[name]["sky_compose_ms"] = time_launches(
             lambda s: mk.compose(planes, sky, cfg), 20)
         out[name]["frame_ms"] = time_frames(scenes[name], camera, sky, cfg, 7)
+        out[name]["fwd_bwd_ms_per_sample"] = time_fwd_bwd(scenes[name], camera, sky, cfg, 3)
     emit("timing", size=[WIDTH, HEIGHT], spp_per_frame=SPP,
          unit="ms per sample, median (frame_ms: per frame of spp_per_frame samples)", **out)
     return out
@@ -404,7 +767,55 @@ def bound(scene: Scene, stats: dict, record: bool, cfg: RenderConfig) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def phase_kernels(scenes, at_full, counts, timing) -> None:
+def bound_bwd(scene: Scene, stats: dict, cfg: RenderConfig) -> dict:
+    """Least time the card could take for one backward sample of this input.
+
+    Bytes, what this input's gradients need and no more: the scene and the
+    camera read and both gradients written once; the three radiance
+    cotangents of every pixel whose path hits anything (a path that leaves at
+    once adds nothing to the radiance); the six sky cotangents of every pixel
+    whose path leaves the scene; one primary index per bounce a path is alive
+    in (the one that says it left included); one shadow index per accepted
+    sample of an active lane. The tenth cotangent plane has nowhere to go and
+    a dead lane's indices are never needed.
+
+    Operations: for every bounce a path is alive in and hits something, the
+    replay of that one hit (sphere or box, as hit) and its shading plus the
+    adjoint and the sum into the row; for the bounce a path leaves at, its
+    ray and the sky direction's adjoint; the camera ray per pixel. The branch
+    is counted as specular on every hit (the diffuse adjoint is shorter), so
+    the operation count is an upper estimate; it does not set the bound."""
+    n = scene.num_objects
+    pixels = WIDTH * HEIGHT
+    has_light = scene.has_light and cfg.shadow_samples > 0
+    ns = cfg.shadow_samples if has_light else 0
+    per_live = F_RAY + F_SHADE + F_ADJ_COMMON + F_ADJ_BRANCH + F_ADJ_ROUTE + 6  # 6: hit point
+    if has_light:
+        per_live += F_LIGHT_BLEND + ns * F_ACCEPT + F_ADJ_LIGHT
+    per_sphere = F_SPHERE + (F_FINISH - 6) + F_ADJ_SPHERE
+    per_cube = F_CUBE + F_ADJ_CUBE
+    flops = pixels * F_ADJ_CAMERA
+    nbytes = 2 * (n * 16 * 4 + 16 * 4) + 3 * 4 * stats["active"][0]
+    for b in range(cfg.bounces):
+        alive, active = stats["alive"][b], stats["active"][b]
+        spheres = stats["active_spheres"][b]
+        leaving = alive - active
+        flops += active * per_live + spheres * per_sphere + (active - spheres) * per_cube
+        flops += leaving * (F_RAY + F_ADJ_MISS)
+        nbytes += 6 * 4 * leaving + 4 * alive
+        if has_light:
+            flops += stats["shadow_rays"][b] * (F_SHADOW_SUM + 3)
+            nbytes += 4 * stats["shadow_rays"][b]
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            # what the kernel's interface moves if every plane is read in full
+            "bytes_all_planes": 2 * (n * 16 * 4 + 16 * 4)
+                                + (10 + mk.record_layout(cfg, scene.has_light)) * pixels * 4}
+
+
+def phase_kernels(scenes, at_full, bwd_at_full, counts, train_counts, timing) -> None:
     cfg = RenderConfig()
     rows = []
     for kname, record, replaces in (
@@ -429,7 +840,11 @@ def phase_kernels(scenes, at_full, counts, timing) -> None:
         rows.append({
             "name": kname, "route": "cuda",
             "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_fwd.cu",
-            "replaces": replaces, "launches": counts[kname],
+            "replaces": replaces,
+            # the serving path for the forward, the training path for the
+            # recording forward, whose planes the backward consumes
+            "launches": train_counts[kname] if record else counts[kname],
+            "launches_by_path": {"serving": counts[kname], "training": train_counts[kname]},
             "max_abs_err": max(p["max_abs_err"] for p in per_scene.values()),
             "max_share_off": max(p["max_share_off"] for p in per_scene.values()),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
@@ -437,6 +852,34 @@ def phase_kernels(scenes, at_full, counts, timing) -> None:
             "library_ms": None,  # no single PyTorch call computes a path tracer
             "shape": [WIDTH, HEIGHT], "scene": "scene_2", "per_scene": per_scene,
         })
+    per_scene = {}
+    for name in ("scene_2", "room"):
+        cmp_ = bwd_at_full[name]
+        per_scene[name] = {
+            "ms": timing[name]["bwd_kernel_ms"],
+            "zero_cotangents_ms": timing[name]["bwd_kernel_zero_cotangents_ms"],
+            "plain_ms": cmp_["plain_ms"],
+            "max_abs_err": max(cmp_["rows"]["max_abs_err"], cmp_["camera"]["max_abs_err"]),
+            "max_rel_err": cmp_["rows"]["max_rel_err"],
+            "largest_gradient": cmp_["largest_gradient"],
+            **bound_bwd(scenes[name], at_full[name]["stats"], cfg),
+        }
+    lead = per_scene["scene_2"]
+    rows.append({
+        "name": "megakernel_bwd_fetch", "route": "cuda",
+        "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_bwd.cu",
+        "replaces": "ray_tracing_tpu/kernels/megakernel.py:1140 (_run_bwd, fetch arm; "
+                    "_bwd_kernel_fetch :916; K3)",
+        "launches": train_counts["megakernel_bwd_fetch"],
+        "launches_by_path": {"serving": counts["megakernel_bwd_fetch"],
+                             "training": train_counts["megakernel_bwd_fetch"]},
+        "max_abs_err": max(p["max_abs_err"] for p in per_scene.values()),
+        "max_rel_err": max(p["max_rel_err"] for p in per_scene.values()),
+        "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+        "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a path tracer's adjoint
+        "shape": [WIDTH, HEIGHT], "scene": "scene_2", "per_scene": per_scene,
+    })
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -452,12 +895,15 @@ def main() -> int:
     camera = Camera.default(device)
     sky = checker_sky(SKY_SIZE, device=device)
     at_full = phase_kernel_vs_plain(scenes, camera)
+    bwd_results, bwd_at_full = phase_bwd_kernel_vs_plain(scenes, camera)
+    phase_stream_identity(bwd_results)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
+    train_counts, _ = phase_train_path(scenes, camera, sky)
     timing = phase_timing(scenes, camera, sky)
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
-    phase_kernels(scenes, at_full, counts, timing)
+    phase_kernels(scenes, at_full, bwd_at_full, counts, train_counts, timing)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

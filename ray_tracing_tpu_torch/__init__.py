@@ -7,11 +7,14 @@ names of their counterparts:
 
     ops/       vector math, intersections, cubemap, random numbers
     scene/     scene tensors + DSL parser + built-in scenes
-    render/    camera, the plain PyTorch renderer
-    kernels/   the CUDA megakernel (csrc/), its build and its wrapper
+    render/    camera, the plain PyTorch renderer, soft silhouettes
+    kernels/   the CUDA megakernels, forward and backward (csrc/), their
+               build, their wrappers and the autograd boundary
+    diff/      finite differences, the train step and fit
     io/        PNG output
-    apps/      command line
-    compat.py  scenes, cameras and cubemaps from numpy arrays
+    apps/      command line (render) and the invert app (fit)
+    compat.py  scenes, cameras, cubemaps, parameters and cotangents from
+               numpy arrays, gradients back
 
 Every public entry point, the constructors of scenes, cameras and cubemaps
 included, takes ``device=None``, which means the card; it raises when there

@@ -3,8 +3,11 @@
 A scene, camera or cubemap that lives in ``ray_tracing_tpu`` objects crosses
 over as the numpy arrays pulled out of them; nothing here imports that
 package. ``packed_rows()`` of a Scene built by ``scene_from_numpy`` equals
-the JAX ``Scene.packed_rows()`` of the source bit for bit. As everywhere
-in the port, ``device=None`` means the card.
+the JAX ``Scene.packed_rows()`` of the source bit for bit. Parameters and
+cotangents go the same way (``params_from_numpy``, ``cotangents_from_numpy``)
+and gradients come back as numpy arrays (``grads_to_numpy``), field by field
+or as the packed (N,16) / (16,) pair the kernels work on. As everywhere in
+the port, ``device=None`` means the card.
 """
 
 from __future__ import annotations
@@ -75,3 +78,39 @@ def cubemap_from_numpy(h: int, w: int, packed=None, r=None, g=None, b=None,
     if any(tuple(c.shape) != (6 * h * w,) for c in planes):
         raise ValueError(f"r, g, b must each hold {6 * h * w} texels")
     return CubemapData(None, *planes, h, w)
+
+
+def params_from_numpy(params: dict, device=None, requires_grad: bool = True) -> dict:
+    """A (possibly nested) dict of numpy arrays, e.g. {"scene": {"p0":
+    (N,3)}, "camera": {"pos": (3,)}} or {"rows": (N,16), "cam_pack": (16,)},
+    as float32 leaf tensors on `device` that require grad."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _f32(node, device).requires_grad_(requires_grad)
+
+    return conv(params)
+
+
+def cotangents_from_numpy(cotangents, device=None):
+    """Ten (H,W) numpy cotangent planes, in the order of
+    kernels/megakernel.py::PLANE_NAMES, as one (10,H,W) float32 tensor."""
+    device = resolve_device(device)
+    planes = [np.asarray(c, np.float32) for c in cotangents]
+    if len(planes) != 10 or any(p.shape != planes[0].shape or p.ndim != 2 for p in planes):
+        raise ValueError("expected ten (H, W) planes of one shape")
+    return _f32(np.stack(planes), device)
+
+
+def grads_to_numpy(grads) -> dict | np.ndarray:
+    """Gradients back as numpy arrays: a tensor, or a (possibly nested)
+    dict of tensors or of leaves whose .grad is read. A leaf that no
+    gradient reached gives zeros."""
+    if isinstance(grads, dict):
+        return {k: grads_to_numpy(v) for k, v in grads.items()}
+    t = grads
+    if t.requires_grad and t.is_leaf:
+        t = t.grad if t.grad is not None else torch.zeros_like(t)
+    return t.detach().cpu().numpy()

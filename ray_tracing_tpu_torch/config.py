@@ -49,15 +49,24 @@ class RenderConfig:
     # filter of the differentiable mode.
     env_filter: str = "nearest"  # "nearest" | "bilinear"
 
-    # The fields below belong to machinery that later slices of the port
-    # bring over (the backward kernels, the sparse sky cache, soft
-    # silhouettes, the progressive viewer). They are kept so that
-    # configurations stay interchangeable between the two packages.
+    # Backward pass under grad. "fetch": the forward records one winner
+    # index per trace call and the backward kernel replays the paths from
+    # them. "replay" and "direct" are the JAX package's other two modes;
+    # their kernels are not ported yet and executing them raises
+    # NotImplementedError (kernels/megakernel.py::effective_bwd_mode).
     bwd_mode: str = "fetch"  # "fetch" | "replay" | "direct"
+
+    # Training only: above 0, the frame is blended with a soft primary
+    # visibility (render/integrator.py::soft_silhouette_composite), which
+    # gives the geometry a gradient across silhouettes. 0 = hard edges.
+    soft_silhouette_temp: float = 0.0
+
+    # The fields below belong to machinery that later slices of the port
+    # bring over (the sparse sky cache, the progressive viewer). They are
+    # kept so that configurations stay interchangeable between the two
+    # packages.
     sky_sparse_gather: bool = True
     sky_sparse_budget_frac: float = 0.125
-    # A non-zero value raises NotImplementedError in the renderers for now.
-    soft_silhouette_temp: float = 0.0
     init_scale: int = 8
 
     def replace(self, **kw) -> "RenderConfig":

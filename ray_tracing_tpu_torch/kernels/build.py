@@ -4,6 +4,8 @@ ctypes.
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>.so`` inside the package
 directory (``build/`` is not under version control). The sources expose a
 plain C interface and include no PyTorch header, so a build takes seconds.
+Sources share device code through the headers of ``csrc/`` (``*.cuh``); a
+library is stale when its source or any of those headers is newer than it.
 Nothing here runs at import: the first launch of a kernel calls
 ``load_library``. A compiler that is missing, a build that fails or a
 library that does not load raises; there is no fallback.
@@ -70,16 +72,25 @@ def build_library(name: str, verbose: bool = False) -> dict:
     return {"path": str(out), "seconds": seconds, "log": log, "command": " ".join(cmd)}
 
 
+def is_stale(name: str) -> bool:
+    """Whether build/lib<name>.so is missing or older than csrc/<name>.cu or
+    than any header in csrc/ (every source may include every header)."""
+    out = BUILD_DIR / f"lib{name}.so"
+    if not out.is_file():
+        return True
+    inputs = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return out.stat().st_mtime < max(f.stat().st_mtime for f in inputs)
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first when it is missing
-    or older than its source."""
+    """The loaded library of csrc/<name>.cu, built first when it is stale
+    (is_stale)."""
     with _lock:
         lib = _libraries.get(name)
         if lib is not None:
             return lib
-        src = CSRC_DIR / f"{name}.cu"
         out = BUILD_DIR / f"lib{name}.so"
-        if not out.is_file() or out.stat().st_mtime < src.stat().st_mtime:
+        if is_stale(name):
             build_library(name)
         lib = ctypes.CDLL(str(out))
         _libraries[name] = lib

@@ -1,8 +1,8 @@
-"""The forward megakernel of the port: its plain PyTorch version, the wrapper
-of the CUDA kernel, and the renderer built on it.
+"""The megakernels of the port: their plain PyTorch versions, the wrappers
+of the CUDA kernels, the autograd boundary and the renderer built on them.
 
-Counterpart of ``ray_tracing_tpu/kernels/megakernel.py`` (forward half).
-Where each piece of that file went:
+Counterpart of ``ray_tracing_tpu/kernels/megakernel.py``. Where each piece of
+that file went:
 
     JAX package (kernels/megakernel.py)        here
     ------------------------------------------ ---------------------------
@@ -13,14 +13,20 @@ Where each piece of that file went:
     camera_rays_from_pack         :290-305     camera_rays_from_pack
     DirectTracer                  :308-324     DirectTracer
     IndexRecordingTracer          :347-368     IndexRecordingTracer
+    FetchReplayTracer             :370-413     FetchReplayTracer
     tile_physics                  :448-541     tile_physics
     _tile_uv                      :544-563     _tile_uv
     _seed_tile                    :566-571     none (draws are keyed by
                                                pixel and slot)
     _fwd_kernel                   :579-616     csrc/megakernel_fwd.cu and
                                                run_tiles_plain
+    _bwd_kernel_fetch             :916-981     csrc/megakernel_bwd.cu and
+                                               run_bwd_plain
+    effective_bwd_mode            :1006-1045   effective_bwd_mode
     _record_layout                :1057-1075   record_layout
     _run_fwd                      :1078-1111   _launch_fwd
+    _run_bwd (fetch arm)          :1127-1157   _launch_bwd, run_bwd
+    _make_core                    :1194-1232   TilesFunction
     _camera_pack                  :1240-1255   render/camera.py camera_pack
     render_tiles_pallas           :1258-1316   render_tiles_cuda
     render_image_pallas           :1319-1492   render_image_cuda
@@ -32,9 +38,17 @@ plane per shadow sample: plane ``b*(1+ns)`` is bounce b's closest hit, plane
 ``shadow_samples == 0``) there are ``bounces`` planes.
 
 ``tile_physics`` + ``_tile_uv`` + ``PhiloxDraws`` are the plain version of
-the CUDA kernel. ``render_tiles_cuda`` takes the plain version only for
-tensors that lie on the CPU; on CUDA tensors it launches the kernel or
-raises.
+the forward CUDA kernel; the same ``tile_physics`` over a
+``FetchReplayTracer``, differentiated by autograd (``run_bwd_plain``), is the
+plain version of the backward CUDA kernel. The wrappers (``run_tiles``,
+``run_bwd``) take a plain version only for tensors that lie on the CPU; on
+CUDA tensors they launch the kernel or raise.
+
+Gradients: ``render_image_cuda`` of a scene or camera whose leaves require
+grad is differentiable end to end. ``TilesFunction`` is the boundary: its
+forward is the recording kernel, its backward the backward kernel, which
+replays each path from the recorded winner indices. Which object a ray hits
+and every other comparison are detached, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,8 +65,10 @@ from ray_tracing_tpu_torch.ops.cubemap import CubemapData, constant_sky, sample_
 from ray_tracing_tpu_torch.ops.intersect import (
     _single_emissive_index,
     trace,
+    trace_replay_fetch,
     trace_shadow,
     trace_shadow_record,
+    trace_shadow_replay_fetch,
 )
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
 from ray_tracing_tpu_torch.ops.vec import Vec3, div_scalar, fresnel_schlick
@@ -61,10 +77,18 @@ from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, SCENE_COLS, Scene, lig
 
 PLANE_NAMES = ("r", "g", "b", "sx", "sy", "sz", "cr", "cg", "cb", "miss")
 KERNEL_LIBRARY = "megakernel_fwd"
+BWD_KERNEL_LIBRARY = "megakernel_bwd"
 
-# How often each kernel was launched: one count per template instantiation,
-# raised where the launch happens and nowhere else.
-launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0}
+# How often each kernel was launched: one count per kernel (the forward's two
+# template instantiations count apart), raised where the launch happens and
+# nowhere else.
+launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
+                 "megakernel_bwd_fetch": 0}
+
+# Device memory the winner-index planes of one differentiated frame may take
+# (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
+# an 80 GB card. A module constant so that tests can shrink it.
+FETCH_RECORD_BUDGET_BYTES = 32e9
 
 
 def reset_launch_counts() -> None:
@@ -189,6 +213,49 @@ class IndexRecordingTracer(DirectTracer):
         hit, emiss, obj = trace_shadow_record(self.scene, ro, rd)
         self.objs.append(obj)
         return hit, emiss
+
+
+class FetchReplayTracer:
+    """The backward pass's tracer: no loop over the objects. Pops the
+    recorded winner-index planes in tile_physics's call order and rebuilds
+    each Hit from the winner's row of the DIFFERENTIABLE scene table `rows`
+    (ops/intersect.py::trace_replay_fetch), so autograd routes every
+    cotangent to that row."""
+
+    def __init__(self, objs, rows, obj_type, light_index, emissive=None):
+        self._objs = list(objs)
+        self._i = 0
+        self._rows = rows
+        self._obj_type = obj_type
+        self._light_index = light_index
+        self.has_light = light_index >= 0
+        self.emissive = emissive
+        # The single-light occlusion trace records only {that light, -1};
+        # trace_shadow_record keys on the same helper. Not light_index:
+        # a hand-made `emissive` need not agree with it.
+        self._shadow_li = _single_emissive_index(self)
+
+    def _next(self):
+        o = self._objs[self._i]
+        self._i += 1
+        return o
+
+    def trace(self, ro, rd):
+        return trace_replay_fetch(self._rows, self._next(), ro, rd)
+
+    def trace_shadow(self, ro, rd):
+        del ro, rd  # occlusion is detached; the emission comes from the fetch
+        return trace_shadow_replay_fetch(self._rows, self._next(),
+                                         light_index=self._shadow_li)
+
+    def light_origin(self):
+        li = self._light_index
+        r = self._rows
+        return light_origin_from(
+            Vec3(r[li, 0], r[li, 1], r[li, 2]),
+            Vec3(r[li, 3], r[li, 4], r[li, 5]),
+            self._obj_type[li] == OBJ_SPHERE,
+        )
 
 
 def tile_physics(scene, cam, u, v, draws, config: RenderConfig, shape,
@@ -341,10 +408,6 @@ def make_tile_job(scene: Scene, camera: Camera, width: int, height: int,
                   config: RenderConfig = DEFAULT_CONFIG,
                   norm_height: int | None = None,
                   aspect: float | None = None) -> TileJob:
-    if config.soft_silhouette_temp != 0:
-        raise NotImplementedError(
-            "soft_silhouette_temp is not part of the port yet; leave it at 0"
-        )
     if norm_height is None:
         norm_height = height
     if aspect is None:
@@ -372,13 +435,12 @@ def _wrap_i32(x: int) -> int:
     return x - (1 << 32) if x >= (1 << 31) else x
 
 
-def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False):
-    """The plain PyTorch version of the CUDA kernel, on whatever device the
-    job's tensors lie: (planes (10,H,W) float32, records (n_rec,H,W) int32
-    or None)."""
+def _sample_inputs(job: TileJob, seed: int, row0: int):
+    """(u, v, draws) of one sample over the job's frame: the screen
+    coordinates, jitter included, and the draw provider. The forward and the
+    backward plain versions both start here, so they see the same numbers."""
     cfg = job.config
     dev = job.rows.device
-    shape = (job.height, job.width)
     u, v = _tile_uv(job.width, job.height, job.norm_height, row0, dev)
     gpix = global_pixel_index(job.width, job.height, row0, device=dev)
     draws = PhiloxDraws(_wrap_i32(seed), gpix, cfg, job.ns)
@@ -386,9 +448,18 @@ def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False
         ju, jv = draws.jitter()
         u = u + div_scalar(ju - 0.5, float(max(job.width - 1, 1)))
         v = v + div_scalar(jv - 0.5, float(max(job.norm_height - 1, 1)))
+    return u, v, draws
+
+
+def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False):
+    """The plain PyTorch version of the forward CUDA kernel, on whatever
+    device the job's tensors lie: (planes (10,H,W) float32, records
+    (n_rec,H,W) int32 or None)."""
+    shape = (job.height, job.width)
+    u, v, draws = _sample_inputs(job, seed, row0)
     view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
     tracer = IndexRecordingTracer(view) if record else DirectTracer(view)
-    outs = tile_physics(view, job.cam_pack, u, v, draws, cfg, shape, tracer=tracer)
+    outs = tile_physics(view, job.cam_pack, u, v, draws, job.config, shape, tracer=tracer)
     planes = torch.stack(outs)
     if not record:
         return planes, None
@@ -396,18 +467,26 @@ def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False
     return planes, torch.cat(recs).to(torch.int32)
 
 
-def _kernel_function():
-    lib = build.load_library(KERNEL_LIBRARY)
-    fn = lib.rt_megakernel_fwd
+def _load(library: str, function: str, argtypes):
+    lib = build.load_library(library)
+    fn = getattr(lib, function)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float] * 4
-            + [ctypes.c_void_p]
-        )
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.rt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
+
+
+_SCALAR_ARGS = [ctypes.c_int] * 12 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+
+
+def _kernel_function():
+    return _load(KERNEL_LIBRARY, "rt_megakernel_fwd", [ctypes.c_void_p] * 4 + _SCALAR_ARGS)
+
+
+def _bwd_kernel_function():
+    return _load(BWD_KERNEL_LIBRARY, "rt_megakernel_bwd", [ctypes.c_void_p] * 7 + _SCALAR_ARGS)
 
 
 def _check_tensor(name, t, shape, dtype, device):
@@ -423,36 +502,51 @@ def _check_tensor(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_fwd(job: TileJob, seed: int, row0: int, record: bool):
-    """Launch the CUDA kernel on PyTorch's current stream. Does not
-    synchronise; raises when the launch is refused."""
-    cfg = job.config
+def _check_job(job: TileJob):
     dev = job.rows.device
-    n = len(job.obj_type)
-    _check_tensor("scene rows", job.rows, (n, SCENE_COLS), torch.float32, dev)
+    _check_tensor("scene rows", job.rows, (len(job.obj_type), SCENE_COLS), torch.float32, dev)
     _check_tensor("camera pack", job.cam_pack, (16,), torch.float32, dev)
     if job.width < 1 or job.height < 1:
         raise ValueError(f"empty frame {job.width}x{job.height}")
+
+
+def _scalar_args(job: TileJob, seed: int, row0: int):
+    """The arguments every kernel takes after its pointers (Params of
+    csrc/rt_device.cuh, then the stream)."""
+    cfg = job.config
+    return (
+        len(job.obj_type), job.width, job.height, job.norm_height, int(row0), _wrap_i32(seed),
+        job.light_index, job.single_emissive, cfg.bounces, job.ns,
+        int(cfg.cube_biased_sampling), int(cfg.pixel_jitter),
+        cfg.shadow_spread, cfg.light_sample_weight,
+        1.0 - cfg.light_sample_weight, cfg.hit_offset,
+        torch.cuda.current_stream(job.rows.device).cuda_stream,
+    )
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        text = lib.rt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {text} (cudaError {err})")
+
+
+def _launch_fwd(job: TileJob, seed: int, row0: int, record: bool):
+    """Launch the forward CUDA kernel on PyTorch's current stream. Does not
+    synchronise; raises when the launch is refused."""
+    _check_job(job)
+    dev = job.rows.device
     lib, fn = _kernel_function()
     with torch.cuda.device(dev):
         planes = torch.empty((10, job.height, job.width), dtype=torch.float32, device=dev)
         recs = None
         if record:
-            n_rec = record_layout(cfg, job.light_index >= 0)
+            n_rec = record_layout(job.config, job.light_index >= 0)
             recs = torch.empty((n_rec, job.height, job.width), dtype=torch.int32, device=dev)
         err = fn(
             job.rows.data_ptr(), job.cam_pack.data_ptr(), planes.data_ptr(),
-            recs.data_ptr() if record else None,
-            n, job.width, job.height, job.norm_height, int(row0), _wrap_i32(seed),
-            job.light_index, job.single_emissive, cfg.bounces, job.ns,
-            int(cfg.cube_biased_sampling), int(cfg.pixel_jitter),
-            cfg.shadow_spread, cfg.light_sample_weight,
-            1.0 - cfg.light_sample_weight, cfg.hit_offset,
-            torch.cuda.current_stream(dev).cuda_stream,
+            recs.data_ptr() if record else None, *_scalar_args(job, seed, row0),
         )
-    if err != 0:
-        text = lib.rt_cuda_error_string(err).decode()
-        raise RuntimeError(f"megakernel_fwd launch failed: {text} (cudaError {err})")
+    _raise_on(err, lib, "megakernel_fwd")
     launch_counts["megakernel_fwd_record" if record else "megakernel_fwd"] += 1
     return planes, recs
 
@@ -467,14 +561,174 @@ def run_tiles(job: TileJob, seed: int, row0: int = 0, record: bool = False):
     return run_tiles_plain(job, seed, row0, record)
 
 
+# ---------------------------------------------------------------------------
+# The backward of one sample: the kernel's wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+
+def split_records(records, bounces: int, ns: int) -> list:
+    """(n_rec,H,W) index planes -> the per-call list a FetchReplayTracer
+    pops: per bounce the (H,W) primary plane, then the (ns,H,W) shadow
+    volume when next-event estimation runs."""
+    objs, i = [], 0
+    for _ in range(bounces):
+        objs.append(records[i])
+        i += 1
+        if ns:
+            objs.append(records[i:i + ns])
+            i += ns
+    return objs
+
+
+def replay_planes(job: TileJob, rows, cam_pack, u, v, draws, records):
+    """tile_physics over a FetchReplayTracer: the (10,H,W) planes of one
+    sample as a function of `rows` (N,16) and `cam_pack` (16,), which
+    autograd can differentiate. The planes equal the forward's bit for bit:
+    the fetch is an exact gather."""
+    tracer = FetchReplayTracer(
+        split_records(records, job.config.bounces, job.ns), rows,
+        job.obj_type, job.light_index, job.emissive)
+    outs = tile_physics(None, cam_pack, u, v, draws, job.config,
+                        (job.height, job.width), tracer=tracer)
+    return torch.stack(outs)
+
+
+def replay_vjp(job: TileJob, u, v, draws, records, cotangents):
+    """The backward kernel's math in plain PyTorch: replay_planes on the
+    job's (detached) scene rows and camera pack, differentiated by autograd
+    against the (10,H,W) `cotangents`. Returns (planes (10,H,W), g_rows
+    (N,16), g_cam (16,))."""
+    rows = job.rows.detach().requires_grad_(True)
+    cam = job.cam_pack.detach().requires_grad_(True)
+    with torch.enable_grad():
+        planes = replay_planes(job, rows, cam, u, v, draws, records)
+    g_rows, g_cam = torch.autograd.grad(planes, [rows, cam], grad_outputs=cotangents,
+                                        allow_unused=True)
+    if g_rows is None:
+        g_rows = torch.zeros_like(rows)
+    if g_cam is None:
+        g_cam = torch.zeros_like(cam)
+    return planes.detach(), g_rows, g_cam
+
+
+def run_bwd_plain(job: TileJob, seed: int, row0: int, records, cotangents):
+    """The plain PyTorch version of the backward CUDA kernel: regenerates
+    the draws of (seed, pixel, slot) and the jitter, replays the paths from
+    `records` and returns (g_rows (N,16), g_cam (16,))."""
+    u, v, draws = _sample_inputs(job, seed, row0)
+    _, g_rows, g_cam = replay_vjp(job, u, v, draws, records, cotangents)
+    return g_rows, g_cam
+
+
+def _launch_bwd(job: TileJob, seed: int, row0: int, records, cotangents,
+                want_primal: bool = False):
+    """Launch the backward CUDA kernel on PyTorch's current stream: (g_rows
+    (N,16), g_cam (16,)), and with `want_primal` also the ten planes its
+    forward replay arrives at (a check that forward and backward walk the
+    same paths). Does not synchronise; raises when the launch is refused."""
+    _check_job(job)
+    dev = job.rows.device
+    frame = (job.height, job.width)
+    n_rec = record_layout(job.config, job.light_index >= 0)
+    _check_tensor("records", records, (n_rec, *frame), torch.int32, dev)
+    if not isinstance(cotangents, torch.Tensor) or tuple(cotangents.shape) != (10, *frame):
+        raise ValueError(f"cotangents must be a (10, {job.height}, {job.width}) tensor")
+    # autograd may hand over expanded or strided cotangents
+    cotangents = cotangents.contiguous()
+    _check_tensor("cotangents", cotangents, (10, *frame), torch.float32, dev)
+    lib, fn = _bwd_kernel_function()
+    with torch.cuda.device(dev):
+        # the kernel adds into these with atomics
+        g_rows = torch.zeros((len(job.obj_type), SCENE_COLS), dtype=torch.float32, device=dev)
+        g_cam = torch.zeros((16,), dtype=torch.float32, device=dev)
+        primal = torch.empty((10, *frame), dtype=torch.float32, device=dev) if want_primal else None
+        err = fn(
+            job.rows.data_ptr(), job.cam_pack.data_ptr(), cotangents.data_ptr(),
+            records.data_ptr(), g_rows.data_ptr(), g_cam.data_ptr(),
+            primal.data_ptr() if want_primal else None, *_scalar_args(job, seed, row0),
+        )
+    _raise_on(err, lib, "megakernel_bwd")
+    launch_counts["megakernel_bwd_fetch"] += 1
+    return (g_rows, g_cam, primal) if want_primal else (g_rows, g_cam)
+
+
+def run_bwd(job: TileJob, seed: int, row0: int, records, cotangents):
+    """Gradients of one sample with respect to the scene rows and the camera
+    pack: the CUDA kernel for a job on the card, the plain version for a job
+    on the CPU. Nothing else decides between them."""
+    if job.rows.device.type == "cuda":
+        return _launch_bwd(job, seed, row0, records, cotangents)
+    if job.rows.device.type != "cpu":
+        raise ValueError(f"unsupported device {job.rows.device}")
+    return run_bwd_plain(job, seed, row0, records, cotangents)
+
+
+def effective_bwd_mode(scene: Scene, config: RenderConfig, width: int,
+                       height: int, spp: int) -> str:
+    """The backward mode render_image_cuda will EXECUTE under grad.
+
+    bwd_mode="fetch" keeps one int32 winner-index plane per trace call per
+    sample alive until backward(); past FETCH_RECORD_BUDGET_BYTES the mode
+    becomes "replay", which records nothing. Any other configured mode is
+    returned as it is. Exposed so that a caller can log the mode it ran."""
+    if config.bwd_mode != "fetch":
+        return config.bwd_mode
+    has_light = scene.has_light and config.shadow_samples > 0
+    n_rec = record_layout(config, has_light)
+    if spp * n_rec * height * width * 4 > FETCH_RECORD_BUDGET_BYTES:
+        return "replay"
+    return "fetch"
+
+
+class TilesFunction(torch.autograd.Function):
+    """One sample's ten planes as a differentiable function of the packed
+    scene rows and the camera pack. The job's static part, the integer seed
+    and row0 are not tensors (a seed of 2^24 or more stays exact).
+
+    forward: the recording launch when an input requires grad, saving the
+    winner-index planes; else the non-recording launch. backward: run_bwd."""
+
+    @staticmethod
+    def forward(ctx, rows, cam_pack, job, seed, row0):
+        needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        if needs_grad and job.config.bwd_mode != "fetch":
+            raise NotImplementedError(
+                f"bwd_mode {job.config.bwd_mode!r} is not ported yet: only the "
+                'fetch backward (TPU kernel K3) has its CUDA kernel; "replay" '
+                '(K4) and "direct" (K5) come with a later slice'
+            )
+        job = dataclasses.replace(job, rows=rows.detach(), cam_pack=cam_pack.detach())
+        planes, records = run_tiles(job, seed, row0, record=needs_grad)
+        if needs_grad:
+            ctx.save_for_backward(job.rows, job.cam_pack, records)
+            ctx.job = dataclasses.replace(job, rows=None, cam_pack=None)
+            ctx.seed, ctx.row0 = seed, row0
+        return planes
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_planes):
+        rows, cam_pack, records = ctx.saved_tensors
+        job = dataclasses.replace(ctx.job, rows=rows, cam_pack=cam_pack)
+        g_rows, g_cam = run_bwd(job, ctx.seed, ctx.row0, records, g_planes)
+        return g_rows, g_cam, None, None, None
+
+
+def run_tiles_grad(job: TileJob, seed: int, row0: int = 0):
+    """(planes, None) like run_tiles, through the autograd boundary."""
+    return TilesFunction.apply(job.rows, job.cam_pack, job, seed, row0), None
+
+
 def render_tiles_cuda(scene: Scene, camera: Camera, width: int, height: int,
                       seed: int, config: RenderConfig = DEFAULT_CONFIG,
                       row0: int = 0, norm_height: int | None = None,
                       aspect: float | None = None, record: bool = False,
                       device=None):
     """One sample per pixel over the (height, width) frame through the CUDA
-    kernel. Returns a dict of (H,W) float32 planes named PLANE_NAMES; with
-    record=True also "records", the (n_rec,H,W) int32 winner-index planes.
+    kernel. Returns a dict of (H,W) float32 planes named PLANE_NAMES,
+    differentiable with respect to the scene's and the camera's leaves;
+    with record=True also "records", the (n_rec,H,W) int32 winner-index
+    planes (and then the planes carry no graph).
 
     row0/norm_height render a row SLICE of a norm_height-tall frame whose
     rows start at global row row0; aspect overrides the frustum's aspect
@@ -483,11 +737,12 @@ def render_tiles_cuda(scene: Scene, camera: Camera, width: int, height: int,
     device = resolve_device(device)
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
-    planes, recs = run_tiles(job, seed, row0, record)
-    out = dict(zip(PLANE_NAMES, planes))
     if record:
-        out["records"] = recs
-    return out
+        with torch.no_grad():
+            planes, recs = run_tiles(job, seed, row0, record=True)
+        return {**dict(zip(PLANE_NAMES, planes)), "records": recs}
+    planes, _ = run_tiles_grad(job, seed, row0)
+    return dict(zip(PLANE_NAMES, planes))
 
 
 # ---------------------------------------------------------------------------
@@ -513,10 +768,26 @@ def compose(planes, cubemap: CubemapData, config: RenderConfig) -> Vec3:
     return rgb.clip(0.0, 1.0)
 
 
+def _soft_silhouettes(job: TileJob, rgb: Vec3, cubemap: CubemapData, row0: int) -> Vec3:
+    """render/integrator.py::soft_silhouette_composite over the job's frame,
+    with fresh unjittered primary rays from the camera pack."""
+    # imported here: render/integrator.py builds its renderer on this module
+    from ray_tracing_tpu_torch.render.integrator import soft_silhouette_composite
+
+    shape = (job.height, job.width)
+    u, v = _tile_uv(job.width, job.height, job.norm_height, row0, job.rows.device)
+    ro0, rd0 = camera_rays_from_pack(job.cam_pack, u, v, shape)
+    view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
+    return soft_silhouette_composite(view, ro0, rd0, rgb, job.config, cubemap)
+
+
 def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
                  cubemap: CubemapData, row0: int = 0):
     """(H, W, 3) image: `spp` samples through `tiles_fn`, each composed with
-    its sky and clipped BEFORE the average."""
+    its sky and clipped BEFORE the average. With soft_silhouette_temp > 0
+    the average is then blended with the soft primary visibility; the blend
+    is affine in the colour and the same for every sample, so blending the
+    average equals averaging the blended samples."""
     if spp < 1:
         raise ValueError("spp must be at least 1")
     total = None
@@ -526,6 +797,8 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
         total = rgb if total is None else total + rgb
     if spp > 1:
         total = total * (1.0 / spp)
+    if job.config.soft_silhouette_temp > 0:
+        total = _soft_silhouettes(job, total, cubemap, row0)
     return total.to_array()
 
 
@@ -539,12 +812,18 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     PyTorch: (height, width, 3) float32 in [0, 1] on the device.
 
     Takes the statistics of render_image (render/integrator.py) and the
-    very same random numbers. row0/norm_height/aspect as in
-    render_tiles_cuda. device=None means the card and raises without one;
-    device="cpu" runs the plain version."""
+    very same random numbers. Differentiable end to end: when a leaf of
+    `scene` or `camera` requires grad, each sample runs the recording
+    kernel and backward() runs the backward kernel (effective_bwd_mode says
+    which mode that is; a mode other than "fetch" raises under grad).
+    row0/norm_height/aspect as in render_tiles_cuda. device=None means the
+    card and raises without one; device="cpu" runs the plain versions."""
     device = resolve_device(device)
     if cubemap is None:
         cubemap = constant_sky(device=device)
+    mode = effective_bwd_mode(scene, config, width, height, spp)
+    if mode != config.bwd_mode:
+        config = config.replace(bwd_mode=mode)
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
-    return render_frame(job, run_tiles, seed, spp, cubemap.to(device), row0)
+    return render_frame(job, run_tiles_grad, seed, spp, cubemap.to(device), row0)

@@ -1,4 +1,4 @@
-"""Closest-hit ray tracing in plain PyTorch (forward only).
+"""Closest-hit ray tracing in plain PyTorch, and its differentiable replay.
 
 Counterpart of ``ray_tracing_tpu/ops/intersect.py`` and the plain version of
 what the CUDA kernel does per thread. A running-min loop over the scene's
@@ -12,6 +12,14 @@ Semantics, faithful to the reference renderer:
   * cube: slab method with the exact axis-tracking sequence that picks the
     face normal, IEEE inf on axis-parallel rays
   * closest hit: strictly-less-than scan, so the first of equal t wins
+
+Every function here is safe to differentiate: which object wins, which root
+or face is taken and every other comparison are detached decisions, and no
+lane produces an infinite partial that could meet a zero cotangent
+(``ray_inverses``). ``trace_replay_fetch`` and ``trace_shadow_replay_fetch``
+rebuild a hit from a recorded winner index and the packed scene table with
+no loop over the objects: the backward pass's stand-ins for ``trace`` and
+``trace_shadow``.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import dataclasses
 import torch
 
 from ray_tracing_tpu_torch.ops.vec import Vec3
+from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE
 
 BIG = 3.4e38           # stand-in for FLT_MAX
 HIT_THRESHOLD = 1e37   # anything below this is a real hit
@@ -42,10 +51,43 @@ class Hit:
     emission: Vec3        # emission_color * emission_power
 
 
-def ray_inverses(d: Vec3) -> Vec3:
-    """Per-ray slab reciprocals 1/d, taken once per trace. A zero component
-    gives a signed infinity, which the slab test relies on."""
-    return Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+@dataclasses.dataclass(frozen=True)
+class RayInverses:
+    """Per-ray slab reciprocals, taken once per trace: `zero` marks the
+    components of d that are exactly 0, `safe` is 1/d with those lanes
+    replaced by 1 before the division (so it has a finite derivative
+    everywhere), `raw` is the detached 1/d with its signed infinities."""
+
+    zero: Vec3
+    safe: Vec3
+    raw: Vec3
+
+
+def ray_inverses(d: Vec3) -> RayInverses:
+    def one(den):
+        zero = den == 0.0
+        safe = 1.0 / torch.where(zero, torch.ones_like(den), den)
+        return zero, safe, (1.0 / den).detach()
+
+    (zx, sx, rx), (zy, sy, ry), (zz, sz, rz) = one(d.x), one(d.y), one(d.z)
+    return RayInverses(Vec3(zx, zy, zz), Vec3(sx, sy, sz), Vec3(rx, ry, rz))
+
+
+def _slab_t(num, zero, safe, raw):
+    """num * (1/den) on every lane, the value the slab test relies on
+    (signed infinity on a parallel ray, NaN for 0 * inf). On the parallel
+    lanes the product is detached: its partials are infinite, and under
+    autograd they would meet the zero cotangent of a slab that the select
+    chain did not take (0 * inf = NaN) and poison every gradient."""
+    return torch.where(zero, num.detach() * raw, num * safe)
+
+
+def _slab_t3(num: Vec3, inv: RayInverses) -> Vec3:
+    return Vec3(
+        _slab_t(num.x, inv.zero.x, inv.safe.x, inv.raw.x),
+        _slab_t(num.y, inv.zero.y, inv.safe.y, inv.raw.y),
+        _slab_t(num.z, inv.zero.z, inv.safe.z, inv.raw.z),
+    )
 
 
 def intersect_sphere(ro: Vec3, d: Vec3, a, center: Vec3, radius, inv2a=None):
@@ -66,7 +108,8 @@ def intersect_sphere(ro: Vec3, d: Vec3, a, center: Vec3, radius, inv2a=None):
     return torch.where(valid, t, BIG)
 
 
-def intersect_cube(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, inv: Vec3 | None = None):
+def intersect_cube(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3,
+                   inv: RayInverses | None = None):
     """(t, normal) for one axis-aligned box against all rays; t = BIG where
     there is no hit.
 
@@ -83,8 +126,8 @@ def intersect_cube(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, inv: Vec3 | None = Non
     """
     if inv is None:
         inv = ray_inverses(d)
-    t_a = (lo - ro) * inv
-    t_b = (hi - ro) * inv
+    t_a = _slab_t3(lo - ro, inv)
+    t_b = _slab_t3(hi - ro, inv)
     pos = Vec3(d.x >= 0, d.y >= 0, d.z >= 0)
     tmin = Vec3.where_c(pos, t_a, t_b)
     tmax = Vec3.where_c(pos, t_b, t_a)
@@ -131,7 +174,7 @@ def _ray_setup(ro: Vec3, rd: Vec3):
     return d, a, shape, 0.5 / a, ray_inverses(d)
 
 
-def _intersect(scene, i: int, ro: Vec3, d: Vec3, a, inv2a, inv: Vec3):
+def _intersect(scene, i: int, ro: Vec3, d: Vec3, a, inv2a, inv: RayInverses):
     """(t, cube normal or None) of object i against all rays."""
     if scene.is_sphere(i):
         return intersect_sphere(ro, d, a, scene.center(i), scene.radius(i), inv2a), None
@@ -295,3 +338,69 @@ def trace_shadow(scene, ro: Vec3, rd: Vec3):
     """(hit, emission of the nearest object) for light-sampling rays."""
     hit, emiss, _ = trace_shadow_record(scene, ro, rd)
     return hit, emiss
+
+
+# ---------------------------------------------------------------------------
+# Fetch replay: a hit rebuilt from a recorded winner index and the scene table
+# ---------------------------------------------------------------------------
+
+
+def fetch_winner_rows(rows, obj):
+    """rows[obj] per lane, zeros where obj < 0 (a miss): (*obj.shape, C).
+    Plain indexing; its autograd scatters each lane's cotangent back onto
+    the winner's row of `rows`."""
+    hit = obj >= 0
+    got = rows[obj.clamp(min=0).to(torch.int64)]
+    return torch.where(hit.unsqueeze(-1), got, torch.zeros_like(got))
+
+
+def trace_replay_fetch(rows, obj, ro: Vec3, rd: Vec3) -> Hit:
+    """Differentiable Hit from a recorded winner-index plane `obj` and the
+    packed (N,16) scene table: the backward pass's stand-in for trace().
+
+    The winner CHOICE is detached path topology; t, point, normal and the
+    material are recomputed from the winner's own row with the very
+    operations trace() applies to it, so the primal values are those of the
+    forward bit for bit and their derivatives are those of autograd through
+    the full running-min trace. Column 15, the type tag, is read detached."""
+    d = rd.normalize()
+    a = d.dot(d)
+    shape = torch.broadcast_shapes(ro.shape, d.shape)
+    ro = ro.broadcast_to(shape)
+
+    cols = fetch_winner_rows(rows, obj).unbind(-1)
+    hit = obj >= 0
+    p0 = Vec3(cols[0], cols[1], cols[2])
+    p1 = Vec3(cols[3], cols[4], cols[5])
+    is_sph = cols[15].detach() == float(OBJ_SPHERE)
+
+    t_s = intersect_sphere(ro, d, a, p0, p1.x)
+    t_c, n_c = intersect_cube(ro, d, p0, p0 + p1)
+    t = torch.where(is_sph, t_s, t_c)
+    t = torch.where(hit, t, BIG)  # a miss fetched an all-zero row: mask it
+
+    point, normal = _finish_hit(hit, t, is_sph, p0, n_c, ro, d)
+    return Hit(
+        t=t, hit=hit, obj=obj, point=point, normal=normal,
+        albedo=Vec3(cols[6], cols[7], cols[8]), roughness=cols[9],
+        reflectance=cols[10], metallic=cols[11],
+        emission=Vec3(cols[12], cols[13], cols[14]),
+    )
+
+
+def trace_shadow_replay_fetch(rows, obj, light_index: int | None = None):
+    """Differentiable (hit, emission) from the recorded shadow winners `obj`
+    of shape (ns, *shape): the emission columns of each winner's row, the
+    only shadow quantity a gradient flows through (occlusion is detached).
+
+    With `light_index` given (the forward recorded through the single-light
+    occlusion trace, so every index is that light or -1) the fetch reads the
+    light's row alone."""
+    hit = obj >= 0
+    if light_index is not None:
+        e = rows[light_index, 12:15]
+        got = torch.where((obj == light_index).unsqueeze(-1), e, torch.zeros_like(e))
+    else:
+        got = fetch_winner_rows(rows[:, 12:15], obj)
+    ex, ey, ez = got.unbind(-1)
+    return hit, Vec3(ex, ey, ez)

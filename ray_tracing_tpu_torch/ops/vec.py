@@ -109,9 +109,14 @@ class Vec3:
     def normalize(self, eps: float = NORMALIZE_EPS) -> "Vec3":
         """Safe normalize: returns the vector unchanged when ||v|| < eps.
         The reciprocal is taken once and multiplied in, as the CUDA kernel
-        does, so both round the same way."""
-        n = self.norm()
-        small = n < eps
+        does, so both round the same way. Gradients are finite on every
+        lane: a short vector passes through (identity adjoint), and the
+        square root never sees an exact zero, whose infinite derivative
+        would meet the select's zero cotangent (0 * inf = NaN)."""
+        n2 = self.norm2()
+        pos = n2 > 0
+        n = torch.sqrt(torch.where(pos, n2, torch.ones_like(n2)))
+        small = ~pos | (n < eps)
         inv = 1.0 / torch.where(small, torch.ones_like(n), n)
         scaled = self * inv
         return Vec3.where(small, self, scaled)
@@ -125,11 +130,14 @@ class Vec3:
         return div_scalar(self.x + self.y + self.z, 3.0)
 
     def clip(self, lo, hi) -> "Vec3":
-        return Vec3(
-            torch.clamp(self.x, lo, hi),
-            torch.clamp(self.y, lo, hi),
-            torch.clamp(self.z, lo, hi),
-        )
+        """Componentwise min(max(x, lo), hi). Written with maximum/minimum
+        and not clamp: a value exactly on a bound (a black pixel on the
+        clip at 0) then passes half of its cotangent, as the JAX package's
+        clip does, where clamp would pass all of it."""
+        def one(c):
+            return torch.minimum(torch.maximum(c, c.new_full((), lo)), c.new_full((), hi))
+
+        return Vec3(one(self.x), one(self.y), one(self.z))
 
     def is_zero(self, eps: float = ZERO_EPS):
         """All components within (-eps, eps)."""

@@ -11,6 +11,8 @@ a hit into a miss or a specular bounce into a diffuse one, and the whole
 pixel differs, by at most 2 in a direction plane (range [-1, 1]), which on a
 2048-pixel tile moves that plane's mean by 1e-3. Their count is printed."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -150,8 +152,6 @@ def test_pixel_jitter_moves_samples_inside_the_pixel():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     _, ts = U.scene_pair(parse_objects(SCENE_2_TEXT))
-    with pytest.raises(NotImplementedError):
-        tmk.make_tile_job(ts, TCamera.default("cpu"), 8, 8, TCfg(soft_silhouette_temp=0.1))
     with pytest.raises(ValueError):
         tmk._check_tensor("rows", torch.zeros(3, 16)[:, ::2], (3, 8), torch.float32,
                           torch.device("cpu"))
@@ -167,7 +167,11 @@ def test_launch_counts_do_not_move_on_the_cpu():
     tmk.reset_launch_counts()
     out = tmk.render_tiles_cuda(ts, TCamera.default("cpu"), 16, 8, seed=1, device="cpu", record=True)
     assert set(out) == set(tmk.PLANE_NAMES) | {"records"}
-    assert tmk.launch_counts == {"megakernel_fwd": 0, "megakernel_fwd_record": 0}
+    leaf = dataclasses.replace(ts, albedo=ts.albedo.clone().requires_grad_())
+    tmk.render_image_cuda(leaf, TCamera.default("cpu"), 16, 8, seed=1, device="cpu").sum().backward()
+    assert leaf.albedo.grad is not None
+    assert tmk.launch_counts == {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
+                                 "megakernel_bwd_fetch": 0}
 
 
 def test_sample_seeds_wrap_like_int32():
