@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA megakernels (forward and backward) from the sources in this
-checkout, holds each against its plain PyTorch version on the card, renders
-the serving path (scene_2 and a lit room at 1920x1080, default physics, a
-2048^2 packed cubemap) through the entry points a user would call, runs the
-command line, then drives the training path at the same size (the gradient
-of a frame's sum, five steps of `fit`, the invert app) and times the kernels.
-Every phase prints one JSON line with the seconds it took (about 70 in all on
-an H100, the kernels' build included); any phase that fails raises and the
-run exits non-zero. Needs one CUDA device and nvcc; imports nothing of JAX. The
+Builds the CUDA megakernels (the forward; the three backward kernels "fetch",
+"replay" and "direct") from the sources in this checkout, holds each against
+its plain PyTorch version on the card, renders the serving path (scene_2 and a
+lit room at 1920x1080, default physics, a 2048^2 packed cubemap) through the
+entry points a user would call, runs the command line, then drives the
+training path at the same size (the gradient of a frame's sum, five steps of
+`fit` in fetch and in direct mode, a 100-sample gradient past the fetch
+budget, which runs "replay", the invert app) and times the kernels. Every
+phase prints one JSON line with the seconds it took (about 100 in all on an
+H100, the kernels' build included); any phase that fails raises and the run
+exits non-zero. Needs one CUDA device and nvcc; imports nothing of JAX. The
 last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -73,6 +75,14 @@ BWD_CAM_RTOL, BWD_CAM_ATOL = 2e-2, 5e-4
 # sums short (more slices do not make it slower: it is bound by bytes).
 TRAIN_SLICES = 4
 FIT_STEPS = 5
+# Samples of the gradient whose index planes would pass the fetch budget
+# (kernels/megakernel.py::FETCH_RECORD_BUDGET_BYTES) on the room: 40 planes
+# of 8.3 MB per sample, so 97 samples or more run "replay".
+OVER_BUDGET_SPP = 100
+# The backward kernels by backward_kernel's name: launch counter and plain
+# version of the two that keep no index planes.
+BWD_COUNTER = {k: "megakernel_bwd_" + k for k in mk.BWD_KERNELS}
+RETRACE_PLAIN = {"replay": mk.run_bwd_replay_plain, "direct": mk.run_bwd_direct_plain}
 
 # Float operations (add, sub, mul, div, sqrt each count 1; comparisons,
 # selects and the integer work of the generator count 0), counted by hand
@@ -124,15 +134,23 @@ def phase_device() -> dict:
     return {"kind": name, "smi": smi}
 
 
+# Winner source of a backward kernel's instantiation -> its name in the report.
+_WINNERS = {"FetchWinners": "bwd_fetch", "RecordedWinners": "bwd_replay",
+            "TracedWinners": "bwd_direct"}
+
+
 def _ptxas_report(log: str) -> dict:
     """ptxas -v per kernel: registers, stack frame (local memory), spills."""
     kernels, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = ("bwd" if "bwd_kernel" in m.group(1) else "fwd") + \
-                      ("_b1" if "ILb1E" in m.group(1) else "_b0")
-            kernels[current] = {"symbol": m.group(1)}
+            sym = m.group(1)
+            if "fwd_kernel" in sym:
+                current = "fwd_b1" if "ILb1E" in sym else "fwd_b0"
+            else:
+                current = next((v for k, v in _WINNERS.items() if k in sym), sym)
+            kernels[current] = {"symbol": sym}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current:
             kernels[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
@@ -144,8 +162,8 @@ def _ptxas_report(log: str) -> dict:
 
 
 def phase_build() -> None:
-    """Both libraries, one nvcc each, started together."""
-    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY)
+    """The three libraries, one nvcc each, started together."""
+    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(lambda n: build.build_library(n, verbose=True), names))
@@ -153,13 +171,14 @@ def phase_build() -> None:
     kernels = {}
     for info in infos:
         kernels.update(_ptxas_report(info["log"]))
-    # fwd_b0: plain forward, fwd_b1: recording; bwd_b0: backward, bwd_b1: the
-    # instantiation that also writes its replayed primal planes
-    if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_b0", "bwd_b1"}:
-        raise RuntimeError("expected four kernels in the ptxas logs:\n"
+    # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
+    # each winner source
+    if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay", "bwd_direct"}:
+        raise RuntimeError("expected five kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     mk._kernel_function()  # load the libraries just built
-    mk._bwd_kernel_function()
+    for kernel in mk.BWD_KERNELS:
+        mk._bwd_kernel_function(kernel)
     emit("build", seconds=round(wall, 2),
          seconds_each={n: round(i["seconds"], 2) for n, i in zip(names, infos)},
          flags=" ".join(build.NVCC_FLAGS), kernels=kernels)
@@ -331,6 +350,23 @@ def gradient_agreement(got, want, rtol, atol, scale) -> dict:
     return res
 
 
+def bwd_agreement(first, again, want) -> dict:
+    """Two launches of a backward kernel, each (g_rows, g_cam), against its
+    plain version's (g_rows, g_cam) under the BWD_* criterion; raises when an
+    entry is outside. Also the spread between the two launches (float
+    atomics add in another order each time) and the largest gradient."""
+    (g_rows, g_cam), (again_rows, again_cam), (want_rows, want_cam) = first, again, want
+    col_scale = want_rows.abs().amax(dim=0, keepdim=True)
+    res = {"rows": gradient_agreement(g_rows, want_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale),
+           "camera": gradient_agreement(g_cam, want_cam, BWD_CAM_RTOL, BWD_CAM_ATOL,
+                                        want_cam.abs().max())}
+    gradient_agreement(again_rows, want_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale)
+    res["run_to_run_max_abs"] = float(torch.maximum((g_rows - again_rows).abs().max(),
+                                                    (g_cam - again_cam).abs().max()))
+    res["largest_gradient"] = float(want_rows.abs().max())
+    return res
+
+
 def compare_bwd(scene, camera, cfg, width, height, seed, row0=0, norm_height=None,
                 slices=1) -> dict:
     """The recording forward's index planes, then the backward kernel (twice,
@@ -340,7 +376,8 @@ def compare_bwd(scene, camera, cfg, width, height, seed, row0=0, norm_height=Non
     job = mk.make_tile_job(scene, camera, width, height, cfg, norm_height=norm_height)
     planes, records = mk.run_tiles(job, seed, row0, record=True)
     cot = random_cotangents(job)
-    g_rows, g_cam, primal = mk._launch_bwd(job, seed, row0, records, cot, want_primal=True)
+    g_rows, g_cam, primal = mk._launch_bwd("fetch", job, seed, row0, records, cot,
+                                           want_primal=True)
     again_rows, again_cam = mk.run_bwd(job, seed, row0, records, cot)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -349,15 +386,7 @@ def compare_bwd(scene, camera, cfg, width, height, seed, row0=0, norm_height=Non
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
-    col_scale = want_rows.abs().amax(dim=0, keepdim=True)
-    res = {"rows": gradient_agreement(g_rows, want_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale),
-           "camera": gradient_agreement(g_cam, want_cam, BWD_CAM_RTOL, BWD_CAM_ATOL,
-                                        want_cam.abs().max())}
-    gradient_agreement(again_rows, want_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale)
-    # float atomics: two identical launches differ in the order of their sums
-    res["run_to_run_max_abs"] = float(torch.maximum((g_rows - again_rows).abs().max(),
-                                                    (g_cam - again_cam).abs().max()))
-    res["largest_gradient"] = float(want_rows.abs().max())
+    res = bwd_agreement((g_rows, g_cam), (again_rows, again_cam), (want_rows, want_cam))
     # exactly zero: the type-tag column, the unused pack entries, and the
     # rows of objects that no index plane names
     named = torch.zeros(scene.num_objects, dtype=torch.bool, device=records.device)
@@ -411,14 +440,126 @@ def phase_bwd_kernel_vs_plain(scenes, camera) -> tuple[list, dict]:
     return results, at_full
 
 
-def phase_stream_identity(results) -> None:
-    """The backward regenerates the forward's draws: its replayed primal
-    equals the recording forward's ten planes bit for bit over every frame
-    compared above, in the CUDA kernel and in its plain version."""
-    rows = [{"scene": r["scene"], "size": r["size"], "kernel": r["kernel_primal_equal"],
-             "plain": r["plain_primal_equal"]} for r in results]
-    if not all(r["kernel"] and r["plain"] for r in rows):
-        raise RuntimeError(f"a backward replay left the forward's paths: {rows}")
+def compare_retrace(mode: str, scene, camera, cfg, width, height, seed, row0=0,
+                    norm_height=None) -> dict:
+    """The backward kernel that `mode` ("replay" or "direct") runs against
+    its plain version on seeded random cotangents: once through the public
+    dispatch run_bwd (the launch counter says which kernel ran), once through
+    the launch that also writes the planes its forward walk arrives at,
+    which must be the plain forward kernel's (K1) bit for bit."""
+    job = mk.make_tile_job(scene, camera, width, height, cfg.replace(bwd_mode=mode),
+                           norm_height=norm_height)
+    kernel = mk.backward_kernel(job)
+    planes, _ = mk.run_tiles(job, seed, row0)
+    cot = random_cotangents(job)
+    before = dict(mk.launch_counts)
+    g_rows, g_cam = mk.run_bwd(job, seed, row0, None, cot)
+    rose = {k: mk.launch_counts[k] - before[k] for k in before}
+    if rose != {k: int(k == BWD_COUNTER[kernel]) for k in before}:
+        raise RuntimeError(f"bwd_mode={mode}: run_bwd launched {rose}")
+    again_rows, again_cam, primal = mk._launch_bwd(kernel, job, seed, row0, None, cot,
+                                                   want_primal=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_rows, want_cam = RETRACE_PLAIN[kernel](job, seed, row0, cot)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    res = {"kernel": kernel, **bwd_agreement((g_rows, g_cam), (again_rows, again_cam),
+                                             (want_rows, want_cam))}
+    if g_rows[:, 15].abs().max() != 0 or g_cam[14:].abs().max() != 0:
+        raise RuntimeError(f"the {kernel} kernel wrote where nothing can have a gradient")
+    res["rows_without_gradient"] = int((g_rows.abs().sum(dim=1) == 0).sum())
+    res["kernel_primal_equal"] = bool(primal.equal(planes))
+    res["plain_ms"] = plain_ms
+    return res
+
+
+def phase_bwd_modes_vs_plain(scenes, camera) -> list:
+    """K4 ("replay") and K5 ("direct") against their plain versions at the
+    small shape, under the criterion K3 is held to."""
+    results = []
+    for name in ("scene_2", "room"):
+        for jitter in (False, True):
+            for mode in ("replay", "direct"):
+                results.append({"scene": name, "jitter": jitter, "size": [SMALL_W, SMALL_H],
+                                **compare_retrace(mode, scenes[name], camera,
+                                                  RenderConfig(pixel_jitter=jitter),
+                                                  SMALL_W, SMALL_H, seed=31 + jitter)})
+    for mode in ("replay", "direct"):
+        # more bounces than either kernel keeps entry states for (16) and K4
+        # keeps winners for (64 trace calls)
+        results.append({"scene": "room", "bounces": 20, "size": [SMALL_W, SMALL_H],
+                        **compare_retrace(mode, scenes["room"], camera, RenderConfig(bounces=20),
+                                          SMALL_W, SMALL_H, seed=33)})
+        # a row slice: rows 48..95 of the 144-row frame
+        results.append({"scene": "room", "row0": 48, "size": [SMALL_W, 48],
+                        **compare_retrace(mode, scenes["room"], camera, RenderConfig(), SMALL_W,
+                                          48, seed=34, row0=48, norm_height=SMALL_H)})
+    # 60 objects, two lights (full shadow scan): "direct" runs K4
+    results.append({"scene": "sixty_two_lights", "bwd_mode": "direct", "size": [SMALL_W, SMALL_H],
+                    **compare_retrace("direct", scenes["sixty_two_lights"], camera, RenderConfig(),
+                                      SMALL_W, SMALL_H, seed=35)})
+    if results[-1]["kernel"] != "replay":
+        raise RuntimeError("bwd_mode='direct' at 60 objects did not run the replay kernel")
+    # 1024 rows: 128 KB of dynamic shared memory per block, K4's trace loop
+    # over all of them
+    big = Scene.from_objects(random_objects(1024, seed=2, lights=(7,)), device=camera.device)
+    results.append({"scene": "1024_objects", "size": [64, 36],
+                    **compare_retrace("replay", big, camera,
+                                      RenderConfig(bounces=2, shadow_samples=1), 64, 36, seed=36)})
+    emit("bwd_modes_vs_plain",
+         criterion="|kernel - plain| <= rtol*|plain| + atol*max|plain of that column|",
+         rows=[BWD_ROWS_RTOL, BWD_ROWS_ATOL], camera=[BWD_CAM_RTOL, BWD_CAM_ATOL],
+         results=[{k: v for k, v in r.items() if k != "kernel_primal_equal"} for r in results])
+    return results
+
+
+def phase_bwd_modes_full_size(scenes, camera) -> tuple[list, dict]:
+    """At the training path's shape, default physics, one seed: K3 on K2's
+    index planes, K4 and K5 from the scene alone compute the same gradient.
+    K4 and K5 are held against K3 (itself held against its plain version at
+    this shape in bwd_kernel_vs_plain) under the same criterion, and their
+    forward walks against K1's planes."""
+    results, worst = [], {}
+    for name in ("scene_2", "room"):
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
+        planes, records = mk.run_tiles(job, 17, record=True)
+        cot = random_cotangents(job)
+        ref_rows, ref_cam = mk._launch_bwd("fetch", job, 17, 0, records, cot)
+        col_scale = ref_rows.abs().amax(dim=0, keepdim=True)
+        for kernel in ("replay", "direct"):
+            g_rows, g_cam, primal = mk._launch_bwd(kernel, job, 17, 0, None, cot,
+                                                   want_primal=True)
+            torch.cuda.synchronize()
+            res = {"scene": name, "size": [WIDTH, HEIGHT], "kernel": kernel, "against": "fetch",
+                   "rows": gradient_agreement(g_rows, ref_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL,
+                                              col_scale),
+                   "camera": gradient_agreement(g_cam, ref_cam, BWD_CAM_RTOL, BWD_CAM_ATOL,
+                                                ref_cam.abs().max()),
+                   "kernel_primal_equal": bool(primal.equal(planes))}
+            results.append(res)
+            worst[(name, kernel)] = max(res["rows"]["max_abs_err"], res["camera"]["max_abs_err"])
+    emit("bwd_modes_full_size", criterion="as bwd_kernel_vs_plain, the fetch kernel as reference",
+         results=[{k: v for k, v in r.items() if k != "kernel_primal_equal"} for r in results])
+    return results, worst
+
+
+def phase_stream_identity(fetch_results, retrace_results) -> None:
+    """Every backward kernel regenerates the forward's draws and walks its
+    paths: the fetch kernel's replayed primal, and its plain version's,
+    equal the recording forward's ten planes bit for bit over every frame
+    compared above; the replay and direct kernels' forward walks equal the
+    plain forward kernel's planes bit for bit."""
+    rows = []
+    for r in fetch_results:
+        rows.append({"scene": r["scene"], "size": r["size"], "walk": "fetch",
+                     "equal": r["kernel_primal_equal"]})
+        rows.append({"scene": r["scene"], "size": r["size"], "walk": "fetch plain",
+                     "equal": r["plain_primal_equal"]})
+    rows += [{"scene": r["scene"], "size": r["size"], "walk": r["kernel"],
+              "equal": r["kernel_primal_equal"]} for r in retrace_results]
+    if not all(r["equal"] for r in rows):
+        raise RuntimeError(f"a backward walk left the forward's paths: {rows}")
     emit("stream_identity", frames=len(rows), all_bit_equal=True, results=rows)
 
 
@@ -555,7 +696,8 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
         grads[name] = frame_gradient(scenes[name], camera, sky, cfg)
         torch.cuda.synchronize()
         rose = {k: mk.launch_counts[k] - before[k] for k in before}
-        if rose != {"megakernel_fwd": 0, "megakernel_fwd_record": SPP, "megakernel_bwd_fetch": SPP}:
+        if rose != {**dict.fromkeys(before, 0), "megakernel_fwd_record": SPP,
+                    "megakernel_bwd_fetch": SPP}:
             raise RuntimeError(f"{name}: launch counters rose by {rose}")
         for leaf, g in grads[name].items():
             if g is None or not torch.isfinite(g).all():
@@ -563,7 +705,8 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
         report[name] = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
                         "albedo_grad_abs_sum": float(grads[name]["albedo"].abs().sum())}
 
-    # (b) five steps of fit on the room, albedo and position perturbed
+    # (b) five steps of fit on the room, albedo and position perturbed, in
+    # the default mode and in "direct"
     fit_cfg = RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08)
     room = scenes["room"]
     with torch.no_grad():
@@ -575,27 +718,54 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
     start = dataclasses.replace(
         room, albedo=(room.albedo + noise_a.to(room.device)).clamp(0.05, 1.0),
         p0=room.p0 + noise_p.to(room.device))
+    report["fit"] = run_fit(start, camera, target, sky, fit_cfg)
+    before = dict(mk.launch_counts)
+    report["fit_direct"] = run_fit(start, camera, target, sky, fit_cfg.replace(bwd_mode="direct"))
+    rose = {k: mk.launch_counts[k] - before[k] for k in before}
+    if rose["megakernel_bwd_direct"] != FIT_STEPS * SPP or rose["megakernel_fwd_record"] \
+            or rose["megakernel_bwd_fetch"] or rose["megakernel_bwd_replay"]:
+        raise RuntimeError(f"fit in direct mode launched {rose}")
+    report["fit_direct"]["launches"] = rose
+
+    # (d) a gradient whose index planes would pass the fetch budget: the
+    # default configuration runs "replay", the forward keeps nothing
+    cfg_budget = RenderConfig()
+    mode = mk.effective_bwd_mode(room, cfg_budget, WIDTH, HEIGHT, OVER_BUDGET_SPP)
+    if mode != "replay":
+        raise RuntimeError(f"{OVER_BUDGET_SPP} samples: effective_bwd_mode says {mode}")
+    before = dict(mk.launch_counts)
     torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     torch.cuda.synchronize()
-    stamps = [time.perf_counter()]
-    # the callback reads each loss, which waits for the step: a step's time
-    # is then the distance between two stamps
-    fitted, _, losses = fit(start, camera, target, scene_fields=("albedo", "p0"),
-                            steps=FIT_STEPS, lr=2e-2, spp=SPP, config=fit_cfg, cubemap=sky, seed=3,
-                            callback=lambda i, loss, params: stamps.append(time.perf_counter()))
+    t0 = time.perf_counter()
+    room_l, cam_l, leaves = with_leaves(room, camera)
+    img = mk.render_image_cuda(room_l, cam_l, WIDTH, HEIGHT, seed=1, spp=OVER_BUDGET_SPP,
+                               config=cfg_budget, cubemap=sky)
     torch.cuda.synchronize()
-    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    if len(losses) != FIT_STEPS or not all(l == l and abs(l) != float("inf") for l in losses):
-        raise RuntimeError(f"fit: losses {losses}")
-    if not losses[-1] < losses[0]:
-        raise RuntimeError(f"fit: the loss did not fall: {losses}")
-    moved = {f: float((getattr(fitted, f) - getattr(start, f)).abs().max()) for f in ("albedo", "p0")}
-    if not all(m > 0 for m in moved.values()):
-        raise RuntimeError(f"fit: a trained leaf did not move: {moved}")
-    report["fit"] = {"losses": losses, "moved_max_abs": moved,
-                     "first_step_ms": step_ms[0],  # takes in every kernel's first use
-                     "ms_per_step": statistics.median(step_ms[1:]),
-                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    t1 = time.perf_counter()
+    img.sum().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = {n: t.grad for n, t in leaves.items()}
+    rose = {k: mk.launch_counts[k] - before[k] for k in before}
+    want = {k: 0 for k in before}
+    want.update(megakernel_fwd=OVER_BUDGET_SPP, megakernel_bwd_replay=OVER_BUDGET_SPP)
+    if rose != want:
+        raise RuntimeError(f"the over-budget gradient launched {rose}")
+    for leaf, g in grads.items():
+        if g is None or not torch.isfinite(g).all():
+            raise RuntimeError(f"over-budget gradient of {leaf} is missing or not finite")
+    report["over_budget"] = {
+        "scene": "room", "spp": OVER_BUDGET_SPP, "effective_bwd_mode": mode, "launches": rose,
+        "seconds": t2 - t0, "forward_seconds": t1 - t0, "backward_seconds": t2 - t1,
+        # cudaMalloc failures the caching allocator met and retried after
+        # freeing its cache (each one synchronises)
+        "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_reserved": torch.cuda.memory_reserved(),
+        "fetch_index_plane_bytes": OVER_BUDGET_SPP * mk.record_layout(cfg_budget, True)
+                                   * WIDTH * HEIGHT * 4,
+        "albedo_grad_abs_sum": float(grads["albedo"].abs().sum())}
 
     # (c) the invert app at its default size
     with tempfile.TemporaryDirectory() as tmp:
@@ -610,7 +780,7 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
         report["invert"] = {"seconds": round(time.perf_counter() - t0, 3)}
 
     counts = dict(mk.launch_counts)  # read right after the training path
-    for k in ("megakernel_fwd_record", "megakernel_bwd_fetch"):
+    for k in ("megakernel_fwd", "megakernel_fwd_record", *BWD_COUNTER.values()):
         if counts[k] < 1:
             raise RuntimeError(f"kernel {k} was not launched on the training path")
 
@@ -636,6 +806,32 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
     emit("train_path", size=[WIDTH, HEIGHT], spp=SPP, sky=[SKY_SIZE, SKY_SIZE], launches=counts,
          plain_slices=TRAIN_SLICES, plain_spp=1, **report)
     return counts, report
+
+
+def run_fit(start, camera, target, sky, cfg) -> dict:
+    """FIT_STEPS steps of fit on albedo and p0 from `start`; raises when a
+    loss is not finite, the loss did not fall or a leaf did not move."""
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    # the callback reads each loss, which waits for the step: a step's time
+    # is then the distance between two stamps
+    fitted, _, losses = fit(start, camera, target, scene_fields=("albedo", "p0"),
+                            steps=FIT_STEPS, lr=2e-2, spp=SPP, config=cfg, cubemap=sky, seed=3,
+                            callback=lambda i, loss, params: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    if len(losses) != FIT_STEPS or not all(l == l and abs(l) != float("inf") for l in losses):
+        raise RuntimeError(f"fit ({cfg.bwd_mode}): losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"fit ({cfg.bwd_mode}): the loss did not fall: {losses}")
+    moved = {f: float((getattr(fitted, f) - getattr(start, f)).abs().max()) for f in ("albedo", "p0")}
+    if not all(m > 0 for m in moved.values()):
+        raise RuntimeError(f"fit ({cfg.bwd_mode}): a trained leaf did not move: {moved}")
+    return {"bwd_mode": cfg.bwd_mode, "losses": losses, "moved_max_abs": moved,
+            "first_step_ms": step_ms[0],  # takes in every kernel's first use
+            "ms_per_step": statistics.median(step_ms[1:]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
 def time_launches(fn, n: int, warmup: int = 3) -> float:
@@ -683,6 +879,15 @@ def time_bwd(job, n: int, warmup: int = 3) -> tuple[float, float]:
         for c in (cot, torch.zeros_like(cot)))
 
 
+def time_retrace(job, kernel: str, n: int, warmup: int = 3) -> tuple[float, float]:
+    """time_bwd for the replay or the direct kernel, which need no forward
+    before them."""
+    cot = random_cotangents(job)
+    return tuple(
+        time_launches(lambda s: mk._launch_bwd(kernel, job, s, 0, None, c), n, warmup)
+        for c in (cot, torch.zeros_like(cot)))
+
+
 def time_fwd_bwd(scene, camera, sky, cfg, n: int) -> float:
     """Median milliseconds per sample on the host's clock of a whole
     differentiated frame (render, sum, backward) of SPP samples, up to the
@@ -710,14 +915,63 @@ def phase_timing(scenes, camera, sky) -> dict:
                 lambda s: mk.run_tiles_plain(job, s, record=True), 3, warmup=1),
         }
         out[name]["bwd_kernel_ms"], out[name]["bwd_kernel_zero_cotangents_ms"] = time_bwd(job, 20)
+        for kernel in ("replay", "direct"):
+            out[name][f"bwd_{kernel}_ms"], out[name][f"bwd_{kernel}_zero_cotangents_ms"] = \
+                time_retrace(job, kernel, 20)
         planes, _ = mk.run_tiles(job, 5)
         out[name]["sky_compose_ms"] = time_launches(
             lambda s: mk.compose(planes, sky, cfg), 20)
         out[name]["frame_ms"] = time_frames(scenes[name], camera, sky, cfg, 7)
         out[name]["fwd_bwd_ms_per_sample"] = time_fwd_bwd(scenes[name], camera, sky, cfg, 3)
-    emit("timing", size=[WIDTH, HEIGHT], spp_per_frame=SPP,
+        for mode in ("replay", "direct"):
+            out[name][f"fwd_bwd_{mode}_ms_per_sample"] = time_fwd_bwd(
+                scenes[name], camera, sky, cfg.replace(bwd_mode=mode), 3)
+        # the plain versions of K4 and K5 at the shape they are compared at
+        small = mk.make_tile_job(scenes[name], camera, SMALL_W, SMALL_H, cfg)
+        for kernel in ("replay", "direct"):
+            out[name][f"bwd_{kernel}_small_ms"] = time_retrace(small, kernel, 10)[0]
+            cot = random_cotangents(small)
+            out[name][f"bwd_{kernel}_small_plain_ms"] = time_launches(
+                lambda s: RETRACE_PLAIN[kernel](small, s, 0, cot), 1, warmup=1)
+    emit("timing", size=[WIDTH, HEIGHT], spp_per_frame=SPP, small_size=[SMALL_W, SMALL_H],
          unit="ms per sample, median (frame_ms: per frame of spp_per_frame samples)", **out)
     return out
+
+
+def phase_large_scene(camera) -> None:
+    """The fetch (K3) and the replay (K4) backward on the largest scene the
+    parser admits, at the training path's shape and default physics, beside
+    the forward kernel (K1): medians of 3 launches each, distinct seeds."""
+    big = Scene.from_objects(random_objects(1024, seed=2, lights=(7,)), device=camera.device)
+    job = mk.make_tile_job(big, camera, WIDTH, HEIGHT, RenderConfig())
+    cot = random_cotangents(job)
+    recs = [mk.run_tiles(job, s, record=True)[1] for s in range(3)]
+    out = {"k1_ms": time_launches(lambda s: mk.run_tiles(job, s), 3, warmup=0),
+           "k3_ms": time_launches(lambda s: mk._launch_bwd("fetch", job, s % 3, 0, recs[s % 3], cot),
+                                  3, warmup=0),
+           "k4_ms": time_launches(lambda s: mk._launch_bwd("replay", job, s, 0, None, cot),
+                                  3, warmup=0)}
+    k2_ms = time_launches(lambda s: mk.run_tiles(job, s, record=True), 1, warmup=0)
+    emit("large_scene", objects=big.num_objects, size=[WIDTH, HEIGHT], launches_each=3,
+         unit="ms per sample, median", k2_ms_one_launch=k2_ms,
+         fetch_fwd_bwd_ms=k2_ms + out["k3_ms"], replay_fwd_bwd_ms=out["k1_ms"] + out["k4_ms"], **out)
+
+
+def trace_flops(scene: Scene) -> tuple[int, int]:
+    """Float operations of one closest-hit trace (the loop over every object
+    and the hit) and of one shadow trace (occlusion-only with one light, the
+    full scan otherwise), from csrc/rt_device.cuh."""
+    n_sph = sum(t == OBJ_SPHERE for t in scene.obj_type)
+    n_cube = scene.num_objects - n_sph
+    f_trace = F_RAY + n_sph * F_SPHERE + n_cube * F_CUBE + F_FINISH
+    if sum(bool(e) for e in (scene.emissive or ())) == 1:
+        light_sph = scene.obj_type[scene.light_index] == OBJ_SPHERE
+        f_shadow = (F_RAY + (F_SPHERE if light_sph else F_CUBE) + 1
+                    + (n_sph - light_sph) * F_OCC_SPHERE
+                    + (n_cube - (not light_sph)) * F_CUBE)
+    else:
+        f_shadow = F_RAY + n_sph * F_SPHERE + n_cube * F_CUBE
+    return f_trace, f_shadow
 
 
 def bound(scene: Scene, stats: dict, record: bool, cfg: RenderConfig) -> dict:
@@ -735,21 +989,10 @@ def bound(scene: Scene, stats: dict, record: bool, cfg: RenderConfig) -> dict:
     lane casts for every sample, accepted or not, so with `record` and a
     light each of them is needed."""
     n = scene.num_objects
-    n_sph = sum(t == OBJ_SPHERE for t in scene.obj_type)
-    n_cube = n - n_sph
     pixels = WIDTH * HEIGHT
     has_light = scene.has_light and cfg.shadow_samples > 0
     ns = cfg.shadow_samples if has_light else 0
-    f_trace = F_RAY + n_sph * F_SPHERE + n_cube * F_CUBE + F_FINISH
-    single = sum(bool(e) for e in (scene.emissive or ())) == 1
-    if single:
-        li = scene.light_index
-        light_sph = scene.obj_type[li] == OBJ_SPHERE
-        f_shadow = (F_RAY + (F_SPHERE if light_sph else F_CUBE) + 1
-                    + (n_sph - light_sph) * F_OCC_SPHERE
-                    + (n_cube - (not light_sph)) * F_CUBE)
-    else:
-        f_shadow = F_RAY + n_sph * F_SPHERE + n_cube * F_CUBE
+    f_trace, f_shadow = trace_flops(scene)
     flops = 0
     for b in range(cfg.bounces):
         alive, active = stats["alive"][b], stats["active"][b]
@@ -767,55 +1010,77 @@ def bound(scene: Scene, stats: dict, record: bool, cfg: RenderConfig) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def bound_bwd(scene: Scene, stats: dict, cfg: RenderConfig) -> dict:
-    """Least time the card could take for one backward sample of this input.
+def trace_work(scene: Scene, stats: dict, cfg: RenderConfig) -> int:
+    """Float operations of one pass of tracing over this input: the
+    closest-hit trace of every alive lane, and the shadow ray and shadow
+    trace of every accepted sample of an active lane."""
+    f_trace, f_shadow = trace_flops(scene)
+    has_light = scene.has_light and cfg.shadow_samples > 0
+    return sum(stats["alive"][b] * f_trace
+               + (stats["shadow_rays"][b] * (F_SHADOW_RAY + f_shadow) if has_light else 0)
+               for b in range(cfg.bounces))
+
+
+def bound_bwd(scene: Scene, stats: dict, cfg: RenderConfig, retrace: bool = False) -> dict:
+    """Least time the card could take for one backward sample of this input:
+    from the recorded index planes (the fetch kernel), or, with `retrace`,
+    from the scene alone (the replay and the direct kernel, which compute the
+    same gradient and so share one bound).
 
     Bytes, what this input's gradients need and no more: the scene and the
     camera read and both gradients written once; the three radiance
     cotangents of every pixel whose path hits anything (a path that leaves at
     once adds nothing to the radiance); the six sky cotangents of every pixel
-    whose path leaves the scene; one primary index per bounce a path is alive
-    in (the one that says it left included); one shadow index per accepted
-    sample of an active lane. The tenth cotangent plane has nowhere to go and
-    a dead lane's indices are never needed.
+    whose path leaves the scene; from the index planes, one primary index per
+    bounce a path is alive in (the one that says it left included) and one
+    shadow index per accepted sample of an active lane. The tenth cotangent
+    plane has nowhere to go and a dead lane's indices are never needed.
 
-    Operations: for every bounce a path is alive in and hits something, the
-    replay of that one hit (sphere or box, as hit) and its shading plus the
-    adjoint and the sum into the row; for the bounce a path leaves at, its
-    ray and the sky direction's adjoint; the camera ray per pixel. The branch
-    is counted as specular on every hit (the diffuse adjoint is shorter), so
-    the operation count is an upper estimate; it does not set the bound."""
+    Operations: for every bounce a path is alive in and hits something, its
+    shading plus the adjoint and the sum into the row; for the bounce a path
+    leaves at, the sky direction's adjoint; the camera ray per pixel. The
+    branch is counted as specular on every hit (the diffuse adjoint is
+    shorter), so the operation count is an upper estimate. The hits
+    themselves: from an index, the replay of that one hit (its ray, the
+    winner's intersection and the hit point); with `retrace`, one pass of
+    tracing (trace_work) instead, and no index is read."""
     n = scene.num_objects
     pixels = WIDTH * HEIGHT
     has_light = scene.has_light and cfg.shadow_samples > 0
     ns = cfg.shadow_samples if has_light else 0
-    per_live = F_RAY + F_SHADE + F_ADJ_COMMON + F_ADJ_BRANCH + F_ADJ_ROUTE + 6  # 6: hit point
+    per_live = F_SHADE + F_ADJ_COMMON + F_ADJ_BRANCH + F_ADJ_ROUTE
     if has_light:
         per_live += F_LIGHT_BLEND + ns * F_ACCEPT + F_ADJ_LIGHT
-    per_sphere = F_SPHERE + (F_FINISH - 6) + F_ADJ_SPHERE
-    per_cube = F_CUBE + F_ADJ_CUBE
     flops = pixels * F_ADJ_CAMERA
     nbytes = 2 * (n * 16 * 4 + 16 * 4) + 3 * 4 * stats["active"][0]
     for b in range(cfg.bounces):
         alive, active = stats["alive"][b], stats["active"][b]
         spheres = stats["active_spheres"][b]
         leaving = alive - active
-        flops += active * per_live + spheres * per_sphere + (active - spheres) * per_cube
-        flops += leaving * (F_RAY + F_ADJ_MISS)
-        nbytes += 6 * 4 * leaving + 4 * alive
+        flops += active * per_live + spheres * F_ADJ_SPHERE + (active - spheres) * F_ADJ_CUBE
+        flops += leaving * F_ADJ_MISS
+        nbytes += 6 * 4 * leaving
         if has_light:
             flops += stats["shadow_rays"][b] * (F_SHADOW_SUM + 3)
-            nbytes += 4 * stats["shadow_rays"][b]
+        if not retrace:
+            # 6: the hit point; a sphere's normal is the rest of F_FINISH
+            flops += (spheres * (F_RAY + F_SPHERE + F_FINISH)
+                      + (active - spheres) * (F_RAY + 6 + F_CUBE) + leaving * F_RAY)
+            nbytes += 4 * alive + (4 * stats["shadow_rays"][b] if has_light else 0)
+    if retrace:
+        flops += trace_work(scene, stats, cfg)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
             # what the kernel's interface moves if every plane is read in full
             "bytes_all_planes": 2 * (n * 16 * 4 + 16 * 4)
-                                + (10 + mk.record_layout(cfg, scene.has_light)) * pixels * 4}
+                                + (10 + (0 if retrace else mk.record_layout(cfg, scene.has_light)))
+                                * pixels * 4}
 
 
-def phase_kernels(scenes, at_full, bwd_at_full, counts, train_counts, timing) -> None:
+def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
+                  timing) -> None:
     cfg = RenderConfig()
     rows = []
     for kname, record, replaces in (
@@ -880,6 +1145,49 @@ def phase_kernels(scenes, at_full, bwd_at_full, counts, train_counts, timing) ->
         "library_ms": None,  # no single PyTorch call computes a path tracer's adjoint
         "shape": [WIDTH, HEIGHT], "scene": "scene_2", "per_scene": per_scene,
     })
+    for kernel, replaces in (
+        ("replay", "ray_tracing_tpu/kernels/megakernel.py:1176 (_run_bwd, replay arm; "
+                   "_bwd_kernel_replay :818; K4)"),
+        ("direct", "ray_tracing_tpu/kernels/megakernel.py:1176 (_run_bwd, direct arm; "
+                   "_bwd_kernel :625; K5)"),
+    ):
+        name = BWD_COUNTER[kernel]
+        small = [r for r in retrace if r["kernel"] == kernel]
+        per_scene = {}
+        for sc in ("scene_2", "room"):
+            b = bound_bwd(scenes[sc], at_full[sc]["stats"], cfg, retrace=True)
+            per_scene[sc] = {
+                "ms": timing[sc][f"bwd_{kernel}_ms"],
+                "zero_cotangents_ms": timing[sc][f"bwd_{kernel}_zero_cotangents_ms"],
+                "small_ms": timing[sc][f"bwd_{kernel}_small_ms"],
+                "plain_ms": timing[sc][f"bwd_{kernel}_small_plain_ms"],
+                "max_abs_err_vs_fetch_kernel": retrace_full[(sc, kernel)],
+                **b,
+            }
+            if kernel == "direct":
+                # not the bound: the direct kernel traces every live bounce a
+                # second time in its reverse sweep instead of keeping winners
+                per_scene[sc]["flops_as_run"] = b["flops"] + trace_work(
+                    scenes[sc], at_full[sc]["stats"], cfg)
+        lead = per_scene["scene_2"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_bwd_retrace.cu",
+            "replaces": replaces,
+            "launches": train_counts[name],
+            "launches_by_path": {"serving": counts[name], "training": train_counts[name]},
+            # against its plain version, every small case of bwd_modes_vs_plain
+            "max_abs_err": max(max(r["rows"]["max_abs_err"], r["camera"]["max_abs_err"])
+                               for r in small),
+            "max_rel_err": max(r["rows"]["max_rel_err"] for r in small),
+            "ms": lead["ms"],
+            # the plain version runs at the comparison shape only: at 1920x1080
+            # its autograd graph through the trace would not fit the card
+            "plain_ms": lead["plain_ms"], "plain_shape": [SMALL_W, SMALL_H],
+            "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a path tracer's adjoint
+            "shape": [WIDTH, HEIGHT], "scene": "scene_2", "per_scene": per_scene,
+        })
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -896,14 +1204,18 @@ def main() -> int:
     sky = checker_sky(SKY_SIZE, device=device)
     at_full = phase_kernel_vs_plain(scenes, camera)
     bwd_results, bwd_at_full = phase_bwd_kernel_vs_plain(scenes, camera)
-    phase_stream_identity(bwd_results)
+    retrace = phase_bwd_modes_vs_plain(scenes, camera)
+    retrace_full_results, retrace_full = phase_bwd_modes_full_size(scenes, camera)
+    phase_stream_identity(bwd_results, retrace + retrace_full_results)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
     train_counts, _ = phase_train_path(scenes, camera, sky)
     timing = phase_timing(scenes, camera, sky)
+    phase_large_scene(camera)
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
-    phase_kernels(scenes, at_full, bwd_at_full, counts, train_counts, timing)
+    phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
+                  timing)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

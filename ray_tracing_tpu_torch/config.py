@@ -49,11 +49,17 @@ class RenderConfig:
     # filter of the differentiable mode.
     env_filter: str = "nearest"  # "nearest" | "bilinear"
 
-    # Backward pass under grad. "fetch": the forward records one winner
-    # index per trace call and the backward kernel replays the paths from
-    # them. "replay" and "direct" are the JAX package's other two modes;
-    # their kernels are not ported yet and executing them raises
-    # NotImplementedError (kernels/megakernel.py::effective_bwd_mode).
+    # Backward pass under grad (kernels/megakernel.py::backward_kernel).
+    # "fetch": the forward records one int32 winner index per trace call
+    #   and sample, kept until backward(), and the backward kernel replays
+    #   the paths from them; past FETCH_RECORD_BUDGET_BYTES of those planes
+    #   render_image_cuda runs "replay" instead (effective_bwd_mode).
+    # "replay": the forward keeps nothing; the backward kernel traces each
+    #   path again, keeps every call's winner in the thread and replays the
+    #   adjoint from them (the least memory).
+    # "direct": the forward keeps nothing; the backward kernel runs the
+    #   closest-hit trace again wherever the adjoint needs a hit. Up to 48
+    #   objects; above that "replay" runs, as in the JAX package.
     bwd_mode: str = "fetch"  # "fetch" | "replay" | "direct"
 
     # Training only: above 0, the frame is blended with a soft primary

@@ -1,53 +1,13 @@
-// Backward path-tracing megakernel for NVIDIA Hopper (sm_90a), "fetch replay".
+// Backward path-tracing megakernel for NVIDIA Hopper (sm_90a), "fetch".
 //
 // Replaces the TPU kernel ray_tracing_tpu/kernels/megakernel.py::
 // _bwd_kernel_fetch (launched by _run_bwd, fetch arm).
 //
-// What it computes: the vector-Jacobian product of the per-pixel estimator
-// of megakernel_fwd.cu. Inputs are the scene table (N,16), the camera pack
-// (16), the ten cotangent planes of the forward's ten output planes, and the
-// winner-index planes the recording forward stored (one per trace call: which
-// object each primary and each shadow ray hit, -1 for none). Outputs are the
-// two sums over every pixel of the frame: the gradient with respect to the
-// scene table (N,16) and to the camera pack (16). Which object a ray hits,
-// which root or face, specular or diffuse, sample accepted or not: every
-// decision is recomputed and detached, no gradient flows through a
-// comparison; every continuous quantity (hit distance, point, normal,
-// material, emission, throughput, the next ray) is differentiated. Shadow
-// rays carry no gradient (occlusion is detached), so the light's position
-// gets none through next-event estimation; the emission they return does.
-//
-// CUDA has no automatic differentiation: the adjoint below is written by
-// hand. Per thread (= pixel) it runs in two phases.
-//   A. Forward replay. Walk the path again with no loop over the objects:
-//      the winner of every trace call comes from the index planes
-//      (`winner()`, the one place that says where it comes from), its hit is
-//      recomputed from its own row with the functions the forward used
-//      (rt_device.cuh), the draws are regenerated from (seed, pixel, slot).
-//      With the same operations in the same order and no FMA contraction the
-//      replay arrives at the forward's values bit for bit, so it takes the
-//      forward's decisions. The state at the entry of each bounce (origin,
-//      direction, throughput: 9 floats) is kept in a per-thread array of
-//      SAVED_BOUNCES entries; a deeper bounce is recomputed from the last
-//      entry kept, so every `bounces` the forward accepts works.
-//   B. Reverse sweep over the bounces the path was alive in, last to first,
-//      carrying the adjoints of origin, direction and throughput. A path
-//      that left the scene starts from the cotangents of the sky direction
-//      and sky throughput planes; every addition to the radiance takes the
-//      cotangent of the radiance planes. A dead lane contributes exactly
-//      nothing: the walk stops where the path died.
-//
-// Routing is part of the kernel: each bounce yields 15 gradient entries for
-// the row of the object hit (column 15, the type tag, has none) and 3 for the
-// emitting row of every shadow sample taken; the camera gets 14 per pixel.
-// They are summed in shared memory (a second (N,16) table beside the scene
-// table, and 16 floats for the camera), then each block adds its non-zero
-// entries to the outputs with one pass of global atomics. In front of the
-// shared atomics a warp whose contributing lanes all hit the same object (the
-// usual case: neighbouring pixels) reduces with shuffles and adds once. The
-// outputs must be zero at launch. Float atomics add in an order that changes
-// from run to run: the gradients are NOT bit-reproducible, only equal within
-// rounding of a sum of that many terms.
+// The kernel is rt_backward.cuh's bwd_kernel (what it computes, its two
+// phases, its routing) with the winners of the trace calls read from the
+// winner-index planes the recording forward stored (one int32 plane per
+// trace call: which object each primary and each shadow ray hit, -1 for
+// none). Nothing loops over the objects.
 //
 // What bounds it on this card: bytes. A pixel needs the three radiance
 // cotangents when its path hits anything, the six sky cotangents when it
@@ -60,550 +20,47 @@
 // the divergence between paths of different lengths, the integer work of the
 // generator, local-memory traffic of the saved states and contention on the
 // atomics. It is a first version that is right.
-//
-// The sphere adjoint divides by the root of the discriminant. That root is
-// never 0 here: the forward counts a sphere as hit only when its discriminant
-// is strictly positive (rt_device.cuh, intersect_sphere), the replay
-// recomputes the same bits, and only recorded winners are differentiated. A
-// grazing hit gives a large gradient, finite as in the plain version.
 
 #include "rt_device.cuh"
+#include "rt_backward.cuh"
 
 using namespace rt;
 
 namespace {
 
-constexpr int SAVED_BOUNCES = 16;
-constexpr unsigned FULL_MASK = 0xffffffffu;
-static_assert(BLOCK_W == 32, "a warp is one row of the block: lane == threadIdx.x");
+// The winner of trace call `index` is the forward's index plane `index`.
+struct FetchWinners {
+    const int* rec;
+    size_t plane, pix;
 
-struct PathState {
-    V3 ro, rd, contrib;
+    __device__ FetchWinners(const int* r, size_t pl, size_t px) : rec(r), plane(pl), pix(px) {}
+
+    __device__ __forceinline__ void begin_sweep() {}
+
+    __device__ __forceinline__ int primary(const float*, const Params& p, int b, V3, V3) const {
+        return rec[(size_t)(b * (1 + p.ns)) * plane + pix];
+    }
+
+    __device__ __forceinline__ int shadow(const float*, const Params& p, int b, int s, V3,
+                                          V3) const {
+        return rec[(size_t)(b * (1 + p.ns) + 1 + s) * plane + pix];
+    }
 };
-
-// Everything one live bounce computes from its entry state, kept for the
-// step forward and for the adjoint.
-struct Bounce {
-    int obj;       // primary winner, -1: the path leaves the scene here
-    int axis;      // face axis of a box hit, -1 for a sphere
-    Ray ray;
-    float t;
-    V3 point, normal;
-    V3 albedo, emission;
-    float roughness, metallic, one_minus_m;
-    V3 rand_dir;   // bounce direction draw, flipped into the normal's hemisphere
-    V3 v_spec;     // rand_dir * roughness + reflect_dir, before normalisation
-    V3 out_dir;
-    V3 contrib_new;      // throughput after the branch, before the light blend
-    V3 sampled_light;
-    float inv_num;       // 1 / max(accepted shadow samples, 1)
-    bool specular, light_on;
-};
-
-__device__ __forceinline__ float comp(V3 v, int axis) {
-    return axis == 0 ? v.x : (axis == 1 ? v.y : v.z);
-}
-
-__device__ __forceinline__ void add_comp(V3& v, int axis, float s) {
-    if (axis == 0) v.x += s;
-    else if (axis == 1) v.y += s;
-    else v.z += s;
-}
-
-// Adjoint of normalize(v): g is the cotangent of the result. Below
-// NORMALIZE_EPS the forward passes v through, and so does the adjoint.
-__device__ __forceinline__ V3 normalize_adj(V3 v, V3 g) {
-    float n = sqrtf(dot(v, v));
-    if (n < NORMALIZE_EPS) return g;
-    float inv = 1.0f / n;
-    V3 u = v * inv;
-    return (g - u * dot(u, g)) * inv;
-}
-
-// Where a trace call's winner comes from: the index plane the recording
-// forward wrote. `index` counts trace calls in the forward's order:
-// b*(1+ns) for bounce b's primary ray, b*(1+ns)+1+s for its shadow sample s.
-__device__ __forceinline__ int winner(const int* __restrict__ rec, size_t plane, size_t pix,
-                                      int index) {
-    return rec[(size_t)index * plane + pix];
-}
-
-// Forward replay of bounce b from its entry state: the forward kernel's
-// operations in the forward kernel's order, with the closest-hit loop
-// replaced by the recorded winner.
-__device__ __forceinline__ void eval_bounce(const float* rows, const int* __restrict__ rec,
-                                            size_t plane, size_t pix, const Params& p,
-                                            V3 light_emission, Draws& draws,
-                                            const PathState& st, int b, Bounce& e) {
-    const int base = 2 + b * (3 * p.ns + 4);
-    const int rec_base = b * (1 + p.ns);
-    const bool cube_biased = p.cube_biased != 0;
-
-    e.ray = make_ray(st.ro, st.rd);
-    e.obj = winner(rec, plane, pix, rec_base);
-    if (e.obj < 0) return;
-
-    const float* row = rows + e.obj * SCENE_COLS;
-    e.t = intersect_any(e.ray, row, e.axis);
-    e.point = e.ray.ro + e.ray.d * e.t;
-    if (e.axis < 0) {
-        e.normal = normalize(e.point - v3(row[0], row[1], row[2]));
-    } else {
-        e.normal = cube_normal(e.ray, e.axis);
-    }
-    e.albedo = v3(row[6], row[7], row[8]);
-    e.roughness = row[9];
-    float reflectance = row[10];
-    e.metallic = row[11];
-    e.emission = v3(row[12], row[13], row[14]);
-
-    // next-event estimation: the shadow rays are not cast again, their
-    // winners are read; a sample counts when its direction is accepted
-    e.sampled_light = v3(0.0f, 0.0f, 0.0f);
-    e.inv_num = 1.0f;
-    if (p.light_index >= 0) {
-        V3 sum = v3(0.0f, 0.0f, 0.0f);
-        float num = 0.0f;
-        for (int s = 0; s < p.ns; ++s) {
-            V3 rand_dir = draws.direction(base + 3 * s, cube_biased);
-            if (dot(rand_dir, e.normal) > 0.0f) {
-                num += 1.0f;
-                int w = winner(rec, plane, pix, rec_base + 1 + s);
-                if (w >= 0) {
-                    V3 em = p.single_emissive >= 0
-                                ? light_emission
-                                : v3(rows[w * SCENE_COLS + 12], rows[w * SCENE_COLS + 13],
-                                     rows[w * SCENE_COLS + 14]);
-                    sum = sum + em;
-                }
-            }
-        }
-        e.inv_num = 1.0f / (num > 1.0f ? num : 1.0f);
-        e.sampled_light = sum * e.inv_num;
-    }
-
-    // Fresnel with the RAW incoming direction: feeds the branch only
-    float nov = dot(e.normal, -st.rd);
-    nov = nov < 0.0f ? 0.0f : (nov > 1.0f ? 1.0f : nov);
-    float f0_d = 0.16f * reflectance * reflectance;
-    e.one_minus_m = 1.0f - e.metallic;
-    V3 f0 = v3(f0_d * e.one_minus_m + e.albedo.x * e.metallic,
-               f0_d * e.one_minus_m + e.albedo.y * e.metallic,
-               f0_d * e.one_minus_m + e.albedo.z * e.metallic);
-    float q = 1.0f - nov;
-    float q2 = q * q;
-    float p5 = q * (q2 * q2);
-    V3 F = v3(f0.x + (1.0f - f0.x) * p5, f0.y + (1.0f - f0.y) * p5, f0.z + (1.0f - f0.z) * p5);
-
-    e.rand_dir = draws.direction(base + 3 * p.ns, cube_biased);
-    if (dot(e.rand_dir, e.normal) < 0.0f) e.rand_dir = -e.rand_dir;
-
-    float u_branch = draws.uniform(base + 3 * p.ns + 3);
-    float f_avg = (F.x + F.y + F.z) / 3.0f;
-    e.specular = (e.metallic > 0.001f) || (u_branch <= f_avg);
-    V3 reflect_dir = st.rd - e.normal * (2.0f * dot(e.normal, st.rd));
-    e.v_spec = e.rand_dir * e.roughness + reflect_dir;
-    V3 out_spec = normalize(e.v_spec);
-    e.out_dir = sel(e.specular, out_spec, e.rand_dir);
-    e.contrib_new = sel(e.specular, st.contrib, st.contrib * e.albedo * e.one_minus_m);
-    e.light_on = !is_zero(e.sampled_light);
-}
-
-// The state at the entry of the next bounce; `result` gathers the radiance.
-__device__ __forceinline__ void advance(const Params& p, const Bounce& e, PathState& st,
-                                        V3& result) {
-    result = result + e.emission * st.contrib;
-    V3 contrib_new = e.contrib_new;
-    if (e.light_on) {
-        result = result + e.sampled_light * contrib_new * p.light_weight;
-        contrib_new = contrib_new * p.one_minus_light_weight;
-    }
-    st.ro = e.point + e.out_dir * p.hit_offset;
-    st.rd = e.out_dir;
-    st.contrib = contrib_new;
-}
-
-// Adjoint of one live bounce. In: the entry state `st`, what eval_bounce made
-// of it, the cotangent of the radiance `g_res` and the adjoints `a` of the
-// exit state. Out: `a` becomes the adjoints of the entry state, g[0..14] the
-// gradient of the hit object's row, a_sum the gradient of the emission of
-// every shadow sample that was taken.
-__device__ __forceinline__ void bounce_adjoint(const float* rows, const Params& p,
-                                               const PathState& st, const Bounce& e, V3 g_res,
-                                               PathState& a, float* g, V3& a_sum) {
-    const float* row = rows + e.obj * SCENE_COLS;
-    const V3 d = e.ray.d;
-
-    // ro' = point + out_dir * hit_offset, rd' = out_dir
-    V3 a_point = a.ro;
-    V3 a_out = a.ro * p.hit_offset + a.rd;
-    // the light blend: result += sampled_light * contrib_new * w,
-    // contrib' = contrib_new * (1 - w)
-    V3 a_cn = a.contrib;
-    a_sum = v3(0.0f, 0.0f, 0.0f);
-    if (e.light_on) {
-        a_sum = g_res * e.contrib_new * p.light_weight * e.inv_num;
-        a_cn = a.contrib * p.one_minus_light_weight + g_res * e.sampled_light * p.light_weight;
-    }
-
-    // contrib_new = specular ? contrib : contrib * albedo * (1 - metallic)
-    V3 a_contrib;
-    if (e.specular) {
-        a_contrib = a_cn;
-    } else {
-        a_contrib = a_cn * e.albedo * e.one_minus_m;
-        V3 a_albedo = a_cn * st.contrib * e.one_minus_m;
-        g[6] = a_albedo.x;
-        g[7] = a_albedo.y;
-        g[8] = a_albedo.z;
-        g[11] = -dot(a_cn, st.contrib * e.albedo);
-    }
-
-    // result += emission * contrib
-    V3 a_emission = g_res * st.contrib;
-    g[12] = a_emission.x;
-    g[13] = a_emission.y;
-    g[14] = a_emission.z;
-    a_contrib = a_contrib + g_res * e.emission;
-
-    // out_dir = specular ? normalize(rand_dir * roughness + reflect(rd, n)) : rand_dir
-    V3 a_rd = v3(0.0f, 0.0f, 0.0f);
-    V3 a_normal = v3(0.0f, 0.0f, 0.0f);
-    if (e.specular) {
-        V3 a_v = normalize_adj(e.v_spec, a_out);
-        g[9] = dot(a_v, e.rand_dir);
-        float an = dot(a_v, e.normal);
-        float k = dot(e.normal, st.rd);
-        a_rd = a_v - e.normal * (2.0f * an);
-        a_normal = st.rd * (-2.0f * an) - a_v * (2.0f * k);
-    }
-
-    // sphere normal = normalize(point - center); a box's normal is constant
-    V3 a_p0 = v3(0.0f, 0.0f, 0.0f);
-    if (e.axis < 0) {
-        V3 a_q = normalize_adj(e.point - v3(row[0], row[1], row[2]), a_normal);
-        a_point = a_point + a_q;
-        a_p0 = a_p0 - a_q;
-    }
-
-    // point = ro + d * t
-    V3 a_ro = a_point;
-    V3 a_d = a_point * e.t;
-    float a_t = dot(a_point, d);
-
-    if (e.axis < 0) {
-        // t = (-b -+ sqrt(b^2 - 4 a c)) * (0.5 / a), b = -2 oc.d,
-        // c = oc.oc - r^2, oc = center - ro; the root is a detached choice
-        V3 oc = v3(row[0], row[1], row[2]) - e.ray.ro;
-        float radius = row[3];
-        float bq = -2.0f * dot(oc, d);
-        float cq = dot(oc, oc) - radius * radius;
-        float sq = sqrtf(bq * bq - 4.0f * e.ray.a * cq);
-        float s0 = (-bq - sq) * e.ray.inv2a;
-        float sign = s0 < 0.0f ? 1.0f : -1.0f;
-        float a_bq = -a_t * e.ray.inv2a;
-        float a_sq = sign * a_t * e.ray.inv2a;
-        float a_inv2a = a_t * (-bq + sign * sq);
-        float a_discr = a_sq * 0.5f / sq;  // sq > 0 on a recorded hit: see the header
-        a_bq += a_discr * 2.0f * bq;
-        float a_cq = -4.0f * e.ray.a * a_discr;
-        float a_a = -4.0f * cq * a_discr - a_inv2a * e.ray.inv2a / e.ray.a;
-        V3 a_oc = d * (-2.0f * a_bq) + oc * (2.0f * a_cq);
-        a_d = a_d + oc * (-2.0f * a_bq) + d * (2.0f * a_a);
-        g[3] = -2.0f * radius * a_cq;
-        a_p0 = a_p0 + a_oc;
-        a_ro = a_ro - a_oc;
-    } else {
-        // t = (edge - ro) * (1/d) on the face's axis, edge = lo or lo + size;
-        // detached on a ray parallel to the slab
-        float d_ax = comp(d, e.axis);
-        if (d_ax != 0.0f) {
-            bool entering_lo = d_ax >= 0.0f;
-            float inv = comp(e.ray.inv, e.axis);
-            float edge = entering_lo ? row[e.axis] : row[e.axis] + row[3 + e.axis];
-            float num = edge - comp(e.ray.ro, e.axis);
-            float a_num = a_t * inv;
-            add_comp(a_d, e.axis, -(a_t * num) * inv * inv);
-            add_comp(a_ro, e.axis, -a_num);
-            add_comp(a_p0, e.axis, a_num);
-            if (!entering_lo) {  // the far edge is lo + size
-                if (e.axis == 0) g[3] = a_num;
-                else if (e.axis == 1) g[4] = a_num;
-                else g[5] = a_num;
-            }
-        }
-    }
-    g[0] = a_p0.x;
-    g[1] = a_p0.y;
-    g[2] = a_p0.z;
-
-    // d = normalize(rd)
-    a_rd = a_rd + normalize_adj(st.rd, a_d);
-
-    a.ro = a_ro;
-    a.rd = a_rd;
-    a.contrib = a_contrib;
-}
-
-// Adds vals[0..COUNT) to table[key*16 + first_col ...] in shared memory for
-// every lane whose key is >= 0. Every lane of the warp must call it. When
-// all contributing lanes share one key, the warp reduces with shuffles and
-// one lane adds; otherwise each lane adds for itself.
-template <int COUNT>
-__device__ __forceinline__ void route(float* table, int key, const float* vals, int first_col) {
-    const unsigned contributing = __ballot_sync(FULL_MASK, key >= 0);
-    if (contributing == 0u) return;
-    const unsigned same = __match_any_sync(FULL_MASK, key);
-    const bool one_key = __all_sync(FULL_MASK, key < 0 || same == contributing);
-    if (one_key) {
-        const int leader = __ffs(contributing) - 1;
-#pragma unroll
-        for (int c = 0; c < COUNT; ++c) {
-            float v = key >= 0 ? vals[c] : 0.0f;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
-            if ((int)threadIdx.x == leader && v != 0.0f) {
-                atomicAdd(&table[key * SCENE_COLS + first_col + c], v);
-            }
-        }
-    } else if (key >= 0) {
-#pragma unroll
-        for (int c = 0; c < COUNT; ++c) {
-            if (vals[c] != 0.0f) atomicAdd(&table[key * SCENE_COLS + first_col + c], vals[c]);
-        }
-    }
-}
-
-// PRIMAL also writes the ten planes the forward replay arrives at, to be held
-// against the forward kernel's (a check, not used by training).
-template <bool PRIMAL>
-__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
-bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
-           const float* __restrict__ cot, const int* __restrict__ rec,
-           float* __restrict__ g_scene, float* __restrict__ g_cam,
-           float* __restrict__ primal, Params p) {
-    extern __shared__ float s_mem[];
-    __shared__ float s_cam[16];
-    __shared__ float s_gcam[16];
-    const int table = p.n_objects * SCENE_COLS;
-    float* s_rows = s_mem;
-    float* s_grad = s_mem + table;
-
-    const int tid = threadIdx.y * BLOCK_W + threadIdx.x;
-    for (int i = tid; i < table; i += BLOCK_W * BLOCK_H) {
-        s_rows[i] = scene[i];
-        s_grad[i] = 0.0f;
-    }
-    if (tid < 16) {
-        s_cam[tid] = cam[tid];
-        s_gcam[tid] = 0.0f;
-    }
-    __syncthreads();
-
-    const int x = blockIdx.x * BLOCK_W + threadIdx.x;
-    const int y = blockIdx.y * BLOCK_H + threadIdx.y;
-    // a thread past the ragged edge walks no path but takes part in its
-    // warp's reductions
-    const bool inside = x < p.width && y < p.height;
-
-    const size_t plane = (size_t)p.width * p.height;
-    const size_t pix = inside ? (size_t)y * p.width + x : 0;
-    const float* rows = s_rows;
-
-    Draws draws;
-    draws.seed = (uint32_t)p.seed;
-    draws.pixel = (uint32_t)(p.row0 + y) * (uint32_t)p.width + (uint32_t)x;
-    draws.group = -1;
-
-    // pixel -> screen coordinates and the camera ray, as the forward has them
-    const int wm1 = p.width - 1 > 1 ? p.width - 1 : 1;
-    const int hm1 = p.norm_height - 1 > 1 ? p.norm_height - 1 : 1;
-    float u = 1.0f - (float)x / (float)wm1;
-    float v = 1.0f - ((float)y + (float)p.row0) / (float)hm1;
-    if (p.pixel_jitter) {
-        u = u + (draws.uniform(0) - 0.5f) / (float)wm1;
-        v = v + (draws.uniform(1) - 0.5f) / (float)hm1;
-    }
-    V3 ub = v3(s_cam[3], s_cam[4], s_cam[5]);
-    V3 vb = v3(s_cam[6], s_cam[7], s_cam[8]);
-    V3 cw = v3(s_cam[9], s_cam[10], s_cam[11]);
-    float cu = (u - 0.5f) * s_cam[12];
-    float cv = (v - 0.5f) * s_cam[13];
-
-    PathState st;
-    st.rd = v3(cu * ub.x + cv * vb.x - cw.x, cu * ub.y + cv * vb.y - cw.y,
-               cu * ub.z + cv * vb.z - cw.z);
-    st.ro = v3(s_cam[0], s_cam[1], s_cam[2]);
-    st.contrib = v3(1.0f, 1.0f, 1.0f);
-
-    V3 light_emission = v3(0.0f, 0.0f, 0.0f);
-    if (p.single_emissive >= 0) {
-        const float* erow = rows + p.single_emissive * SCENE_COLS;
-        light_emission = v3(erow[12], erow[13], erow[14]);
-    }
-
-    // ---- phase A: forward replay ------------------------------------------
-    PathState saved[SAVED_BOUNCES];
-    Bounce e;
-    V3 result = v3(0.0f, 0.0f, 0.0f);
-    int n_live = 0;       // bounces the path was alive in and hit something
-    bool missed = false;  // the path left the scene at bounce n_live
-    if (inside) {
-        for (int b = 0; b < p.bounces; ++b) {
-            eval_bounce(rows, rec, plane, pix, p, light_emission, draws, st, b, e);
-            if (e.obj < 0) {
-                missed = true;
-                break;
-            }
-            if (b < SAVED_BOUNCES) saved[b] = st;
-            advance(p, e, st, result);
-            ++n_live;
-        }
-    }
-
-    if (PRIMAL && inside) {
-        V3 sky_dir = missed ? normalize(st.rd) : v3(1.0f, 1.0f, 1.0f);
-        V3 sky_contrib = missed ? st.contrib : v3(0.0f, 0.0f, 0.0f);
-        primal[0 * plane + pix] = result.x;
-        primal[1 * plane + pix] = result.y;
-        primal[2 * plane + pix] = result.z;
-        primal[3 * plane + pix] = sky_dir.x;
-        primal[4 * plane + pix] = sky_dir.y;
-        primal[5 * plane + pix] = sky_dir.z;
-        primal[6 * plane + pix] = sky_contrib.x;
-        primal[7 * plane + pix] = sky_contrib.y;
-        primal[8 * plane + pix] = sky_contrib.z;
-        primal[9 * plane + pix] = missed ? 1.0f : 0.0f;
-    }
-
-    // ---- phase B: reverse sweep --------------------------------------------
-    V3 g_res = v3(0.0f, 0.0f, 0.0f);
-    PathState a;  // adjoints of the state at the entry of the bounce above
-    a.ro = v3(0.0f, 0.0f, 0.0f);
-    a.rd = v3(0.0f, 0.0f, 0.0f);
-    a.contrib = v3(0.0f, 0.0f, 0.0f);
-    if (inside) {
-        g_res = v3(cot[0 * plane + pix], cot[1 * plane + pix], cot[2 * plane + pix]);
-        if (missed) {
-            // sky_dir = normalize(rd), sky_contrib = contrib at the miss
-            V3 g_dir = v3(cot[3 * plane + pix], cot[4 * plane + pix], cot[5 * plane + pix]);
-            a.rd = normalize_adj(st.rd, g_dir);
-            a.contrib = v3(cot[6 * plane + pix], cot[7 * plane + pix], cot[8 * plane + pix]);
-        }
-    }
-
-    // the sweep's length is the warp's longest path, so that every lane
-    // reaches the warp-wide reductions of route()
-    const int n_sweep = __reduce_max_sync(FULL_MASK, n_live);
-    for (int b = n_sweep - 1; b >= 0; --b) {
-        const bool on = b < n_live;
-        float g[15];
-#pragma unroll
-        for (int c = 0; c < 15; ++c) g[c] = 0.0f;
-        V3 a_sum = v3(0.0f, 0.0f, 0.0f);
-        int key = -1;
-        if (on) {
-            PathState entry;
-            if (b < SAVED_BOUNCES) {
-                entry = saved[b];
-            } else {
-                // deeper than the array: walk forward from its last entry
-                entry = saved[SAVED_BOUNCES - 1];
-                V3 unused = v3(0.0f, 0.0f, 0.0f);
-                for (int j = SAVED_BOUNCES - 1; j < b; ++j) {
-                    eval_bounce(rows, rec, plane, pix, p, light_emission, draws, entry, j, e);
-                    advance(p, e, entry, unused);
-                }
-            }
-            eval_bounce(rows, rec, plane, pix, p, light_emission, draws, entry, b, e);
-            bounce_adjoint(rows, p, entry, e, g_res, a, g, a_sum);
-            key = e.obj;
-        }
-        route<15>(s_grad, key, g, 0);
-
-        // emission of the shadow samples taken: to the emitting row
-        const bool lit = on && (a_sum.x != 0.0f || a_sum.y != 0.0f || a_sum.z != 0.0f);
-        if (__any_sync(FULL_MASK, lit)) {
-            const int base = 2 + b * (3 * p.ns + 4);
-            const float ge[3] = {a_sum.x, a_sum.y, a_sum.z};
-            for (int s = 0; s < p.ns; ++s) {
-                int target = -1;
-                if (lit) {
-                    V3 rand_dir = draws.direction(base + 3 * s, p.cube_biased != 0);
-                    if (dot(rand_dir, e.normal) > 0.0f) {
-                        int w = winner(rec, plane, pix, b * (1 + p.ns) + 1 + s);
-                        if (w >= 0) target = p.single_emissive >= 0 ? p.single_emissive : w;
-                    }
-                }
-                route<3>(s_grad, target, ge, 12);
-            }
-        }
-    }
-
-    // the camera ray: ro = pos, rd = cu * ub + cv * vb - w,
-    // cu = (u - 0.5) * screen_w, cv = (v - 0.5) * screen_h
-    float gc[14];
-    gc[0] = a.ro.x;
-    gc[1] = a.ro.y;
-    gc[2] = a.ro.z;
-    gc[3] = cu * a.rd.x;
-    gc[4] = cu * a.rd.y;
-    gc[5] = cu * a.rd.z;
-    gc[6] = cv * a.rd.x;
-    gc[7] = cv * a.rd.y;
-    gc[8] = cv * a.rd.z;
-    gc[9] = -a.rd.x;
-    gc[10] = -a.rd.y;
-    gc[11] = -a.rd.z;
-    gc[12] = dot(a.rd, ub) * (u - 0.5f);
-    gc[13] = dot(a.rd, vb) * (v - 0.5f);
-    route<14>(s_gcam, inside ? 0 : -1, gc, 0);
-
-    // one pass of global atomics per block, non-zero entries only: a row no
-    // pixel of this block hit costs nothing and stays exactly zero
-    __syncthreads();
-    for (int i = tid; i < table; i += BLOCK_W * BLOCK_H) {
-        float s = s_grad[i];
-        if (s != 0.0f) atomicAdd(&g_scene[i], s);
-    }
-    if (tid < 16) {
-        float s = s_gcam[tid];
-        if (s != 0.0f) atomicAdd(&g_cam[tid], s);
-    }
-}
 
 }  // namespace
 
-// Launches the backward kernel on `stream`. scene: (n_objects,16) float32,
-// cam: 16 float32, cot: (10,height,width) float32 cotangents, rec:
+// Launches the fetch backward kernel on `stream`. scene: (n_objects,16)
+// float32, cam: 16 float32, cot: (10,height,width) float32 cotangents, rec:
 // (bounces*(1+ns),height,width) int32 winner indices, g_scene: (n_objects,16)
 // and g_cam: 16 float32, both ZERO at launch (the kernel adds into them);
-// primal: (10,height,width) float32 or null (non-null selects the
-// instantiation that also writes the replayed planes). All device pointers.
-// Returns the cudaError_t of the launch (0 = launched).
+// primal: (10,height,width) float32 or null (non-null: the kernel also writes
+// the planes its forward walk arrives at). All device pointers. Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int rt_megakernel_bwd(const float* scene, const float* cam, const float* cot,
                                  const int* rec, float* g_scene, float* g_cam, float* primal,
                                  RT_PARAM_ARGS, void* stream) {
     RT_FILL_PARAMS(p);
-
-    // the scene table and the gradient table beside it
-    const size_t smem = 2 * (size_t)n_objects * SCENE_COLS * sizeof(float);
-    dim3 block(BLOCK_W, BLOCK_H);
-    dim3 grid((width + BLOCK_W - 1) / BLOCK_W, (height + BLOCK_H - 1) / BLOCK_H);
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err;
-    if (primal != nullptr) {
-        err = cudaFuncSetAttribute(bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        bwd_kernel<true><<<grid, block, smem, s>>>(scene, cam, cot, rec, g_scene, g_cam, primal, p);
-    } else {
-        err = cudaFuncSetAttribute(bwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        bwd_kernel<false><<<grid, block, smem, s>>>(scene, cam, cot, rec, g_scene, g_cam, primal, p);
-    }
-    return (int)cudaGetLastError();
+    return launch_bwd<FetchWinners>(scene, cam, cot, rec, g_scene, g_cam, primal, p, stream);
 }
 
 // Text of a cudaError_t, for the wrapper's exception.

@@ -1,0 +1,122 @@
+// Backward path-tracing megakernels for NVIDIA Hopper (sm_90a) that keep no
+// index planes: "replay" and "direct".
+//
+// Replace the TPU kernels ray_tracing_tpu/kernels/megakernel.py::
+//   _bwd_kernel_replay (K4, launched by _run_bwd's replay arm): a recording
+//     pass over the whole scene, the VJP of a loop-free replay of the
+//     recorded winners, routing of the winner cotangents to (N,16) rows;
+//   _bwd_kernel (K5, launched by _run_bwd's direct arm, N <= 48): the VJP of
+//     the estimator through the closest-hit trace itself.
+// Both compute the gradients of the fetch kernel (megakernel_bwd.cu, K3),
+// from the scene table, the camera pack and the cotangents alone: the
+// forward before them is the non-recording one and keeps nothing.
+//
+// Each is rt_backward.cuh's bwd_kernel (what it computes, its two phases,
+// its routing in shared memory) with its own source of winners:
+//   RecordedWinners (K4): phase A runs the real closest-hit trace and the
+//     shadow trace over the shared-memory table and keeps each call's
+//     winner index in a per-thread array; the reverse sweep reads them
+//     back, so no hit is traced twice. The array holds the first
+//     SAVED_WINNERS calls (all of them at 10 bounces and 3 shadow samples);
+//     a later call, which the sweep reaches only by walking forward from
+//     the last saved entry state, is traced again. This is what the JAX
+//     package's RecordingTracer + ReplayTracer compute: the winner's
+//     parameters, re-read from the table by index, are the record's planes.
+//   TracedWinners (K5): nothing is kept; every evaluation of a bounce, in
+//     phase A and again in the sweep, runs the trace loops again.
+//
+// What bounds them on this card: float operations on a lit, enclosed scene,
+// where every live bounce traces its ray and its shadow rays against all N
+// objects (K5 twice, and its shadow rays a third time for the routing);
+// bytes (the cotangents a pixel needs, 28 B for a path that leaves at once)
+// where most paths leave the scene at once. Neither reads index planes. As
+// they stand both are limited by what limits K1 and K3 (divergence, the
+// generator, local memory, atomics), not by either bound.
+
+#include "rt_device.cuh"
+#include "rt_backward.cuh"
+
+using namespace rt;
+
+namespace {
+
+// Trace calls whose winners K4 keeps per thread (256 bytes of local memory).
+constexpr int SAVED_WINNERS = 64;
+
+__device__ __forceinline__ int primary_call(const Params& p, int b) { return b * (1 + p.ns); }
+
+__device__ __forceinline__ int shadow_call(const Params& p, int b, int s) {
+    return b * (1 + p.ns) + 1 + s;
+}
+
+// K4: traced in phase A, read back in the sweep.
+struct RecordedWinners {
+    int kept[SAVED_WINNERS];
+    bool sweeping;
+
+    __device__ RecordedWinners(const int*, size_t, size_t) : sweeping(false) {}
+
+    __device__ __forceinline__ void begin_sweep() { sweeping = true; }
+
+    __device__ __forceinline__ int primary(const float* rows, const Params& p, int b, V3 ro,
+                                           V3 rd) {
+        const int call = primary_call(p, b);
+        if (sweeping && call < SAVED_WINNERS) return kept[call];
+        const int w = trace(rows, p.n_objects, ro, rd).obj;
+        if (!sweeping && call < SAVED_WINNERS) kept[call] = w;
+        return w;
+    }
+
+    __device__ __forceinline__ int shadow(const float* rows, const Params& p, int b, int s, V3 ro,
+                                          V3 rd) {
+        const int call = shadow_call(p, b, s);
+        if (sweeping && call < SAVED_WINNERS) return kept[call];
+        const int w = shadow_winner(rows, p, ro, rd);
+        if (!sweeping && call < SAVED_WINNERS) kept[call] = w;
+        return w;
+    }
+};
+
+// K5: traced wherever asked.
+struct TracedWinners {
+    __device__ TracedWinners(const int*, size_t, size_t) {}
+
+    __device__ __forceinline__ void begin_sweep() {}
+
+    __device__ __forceinline__ int primary(const float* rows, const Params& p, int, V3 ro,
+                                           V3 rd) const {
+        return trace(rows, p.n_objects, ro, rd).obj;
+    }
+
+    __device__ __forceinline__ int shadow(const float* rows, const Params& p, int, int, V3 ro,
+                                          V3 rd) const {
+        return shadow_winner(rows, p, ro, rd);
+    }
+};
+
+}  // namespace
+
+// Launch the replay (K4) or the direct (K5) backward kernel on `stream`.
+// The arguments are those of rt_megakernel_bwd (megakernel_bwd.cu), with
+// `rec` null: scene (n_objects,16) and cam 16 float32, cot (10,height,width)
+// float32 cotangents, g_scene (n_objects,16) and g_cam 16 float32, both ZERO
+// at launch, primal (10,height,width) float32 or null. All device pointers.
+// Return the cudaError_t of the launch (0 = launched).
+extern "C" int rt_megakernel_bwd_replay(const float* scene, const float* cam, const float* cot,
+                                        const int* rec, float* g_scene, float* g_cam,
+                                        float* primal, RT_PARAM_ARGS, void* stream) {
+    RT_FILL_PARAMS(p);
+    return launch_bwd<RecordedWinners>(scene, cam, cot, rec, g_scene, g_cam, primal, p, stream);
+}
+
+extern "C" int rt_megakernel_bwd_direct(const float* scene, const float* cam, const float* cot,
+                                        const int* rec, float* g_scene, float* g_cam,
+                                        float* primal, RT_PARAM_ARGS, void* stream) {
+    RT_FILL_PARAMS(p);
+    return launch_bwd<TracedWinners>(scene, cam, cot, rec, g_scene, g_cam, primal, p, stream);
+}
+
+// Text of a cudaError_t, for the wrapper's exception.
+extern "C" const char* rt_cuda_error_string(int err) {
+    return cudaGetErrorString((cudaError_t)err);
+}

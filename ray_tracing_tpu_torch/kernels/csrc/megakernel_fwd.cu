@@ -55,119 +55,6 @@ using namespace rt;
 
 namespace {
 
-// Sqrt-free "does this sphere block the shadow ray before t_ref": both
-// strictness variants from one setup (at_ref = a * t_ref).
-__device__ __forceinline__ bool occlude_sphere(const Ray& r, const float* row, float at_ref,
-                                               bool want_strict) {
-    V3 oc = v3(row[0], row[1], row[2]) - r.ro;
-    float radius = row[3];
-    float k = dot(oc, r.d);
-    float c = dot(oc, oc) - radius * radius;
-    float D = k * k - r.a * c;
-    bool valid = D > 0.0f;
-    float w = k - at_ref;
-    float w2 = w * w;
-    bool inside = (k < 0.0f) || (c < 0.0f);
-    bool s1_fwd = (k >= 0.0f) || (c <= 0.0f);
-    bool strict = valid && ((inside && (w < 0.0f) && (D < w2) && s1_fwd) ||
-                            (!inside && ((w < 0.0f) || (D > w2))));
-    bool nonstrict = valid && ((inside && (w <= 0.0f) && (D <= w2) && s1_fwd) ||
-                               (!inside && ((w <= 0.0f) || (D >= w2))));
-    return want_strict ? strict : nonstrict;
-}
-
-struct Hit {
-    bool hit;
-    int obj;
-    V3 point, normal, albedo, emission;
-    float roughness, reflectance, metallic;
-};
-
-// Closest hit: strictly-less-than scan (first of equal t wins), material of
-// the winner fetched from its row afterwards; all zeros on a miss.
-__device__ __forceinline__ Hit trace(const float* rows, int n, V3 ro, V3 rd) {
-    Ray r = make_ray(ro, rd);
-    float t_best = BIG;
-    int obj = -1;
-    int axis_best = -1;
-    for (int i = 0; i < n; ++i) {
-        int axis;
-        float t = intersect_any(r, rows + i * SCENE_COLS, axis);
-        if (t < t_best) {
-            t_best = t;
-            obj = i;
-            axis_best = axis;
-        }
-    }
-    Hit h;
-    h.hit = t_best < HIT_THRESHOLD;
-    h.obj = obj;
-    float t_pt = h.hit ? t_best : 0.0f;
-    h.point = r.ro + r.d * t_pt;
-    if (obj < 0) {
-        h.normal = v3(0.0f, 0.0f, 0.0f);
-        h.albedo = v3(0.0f, 0.0f, 0.0f);
-        h.emission = v3(0.0f, 0.0f, 0.0f);
-        h.roughness = 0.0f;
-        h.reflectance = 0.0f;
-        h.metallic = 0.0f;
-        return h;
-    }
-    const float* row = rows + obj * SCENE_COLS;
-    if (axis_best < 0) {
-        h.normal = normalize(h.point - v3(row[0], row[1], row[2]));
-    } else {
-        h.normal = cube_normal(r, axis_best);
-    }
-    h.albedo = v3(row[6], row[7], row[8]);
-    h.roughness = row[9];
-    h.reflectance = row[10];
-    h.metallic = row[11];
-    h.emission = v3(row[12], row[13], row[14]);
-    return h;
-}
-
-// Shadow trace for scenes with exactly one emitter `li`: intersect the light,
-// then ask every other object whether it blocks the ray earlier (ties go to
-// the lower index). Returns the winner index: li or -1.
-__device__ __forceinline__ int shadow_occlusion(const float* rows, int n, int li, V3 ro, V3 rd) {
-    Ray r = make_ray(ro, rd);
-    int axis;
-    float t_e = intersect_any(r, rows + li * SCENE_COLS, axis);
-    if (!(t_e < HIT_THRESHOLD)) return -1;
-    float at_ref = r.a * t_e;
-    for (int j = 0; j < n; ++j) {
-        if (j == li) continue;
-        const float* row = rows + j * SCENE_COLS;
-        bool strict = j > li;
-        bool occ;
-        if (row[15] == TYPE_SPHERE) {
-            occ = occlude_sphere(r, row, at_ref, strict);
-        } else {
-            float t_j = intersect_cube(r, row, axis);
-            occ = strict ? (t_j < t_e) : (t_j <= t_e);
-        }
-        if (occ) return -1;
-    }
-    return li;
-}
-
-// Full shadow scan: index of the nearest object, -1 when nothing is hit.
-__device__ __forceinline__ int shadow_scan(const float* rows, int n, V3 ro, V3 rd) {
-    Ray r = make_ray(ro, rd);
-    float t_best = BIG;
-    int obj = -1;
-    for (int i = 0; i < n; ++i) {
-        int axis;
-        float t = intersect_any(r, rows + i * SCENE_COLS, axis);
-        if (t < t_best) {
-            t_best = t;
-            obj = i;
-        }
-    }
-    return t_best < HIT_THRESHOLD ? obj : -1;
-}
-
 template <bool RECORD>
 __global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
 fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
@@ -225,13 +112,7 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
 
     V3 light_origin = v3(0.0f, 0.0f, 0.0f);
     V3 light_emission = v3(0.0f, 0.0f, 0.0f);
-    if (has_light) {
-        const float* lrow = rows + p.light_index * SCENE_COLS;
-        V3 p0 = v3(lrow[0], lrow[1], lrow[2]);
-        light_origin = lrow[15] == TYPE_SPHERE
-                           ? p0
-                           : p0 + v3(lrow[3], lrow[4], lrow[5]) * 0.5f;
-    }
+    if (has_light) light_origin = light_origin_of(rows + p.light_index * SCENE_COLS);
     if (p.single_emissive >= 0) {
         const float* erow = rows + p.single_emissive * SCENE_COLS;
         light_emission = v3(erow[12], erow[13], erow[14]);
@@ -266,11 +147,9 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
                 bool accept = dot(rand_dir, h.normal) > 0.0f;
                 int winner = -1;
                 if (RECORD || (active && accept)) {
-                    V3 sample_dir = normalize(rand_dir * p.shadow_spread + to_light);
-                    V3 sample_ro = h.point + sample_dir * p.hit_offset;
-                    winner = p.single_emissive >= 0
-                                 ? shadow_occlusion(rows, n, p.single_emissive, sample_ro, sample_dir)
-                                 : shadow_scan(rows, n, sample_ro, sample_dir);
+                    V3 sample_ro, sample_dir;
+                    shadow_ray(p, h.point, to_light, rand_dir, sample_ro, sample_dir);
+                    winner = shadow_winner(rows, p, sample_ro, sample_dir);
                 }
                 if (RECORD) rec[(size_t)(b * rec_per_bounce + 1 + s) * plane + pix] = winner;
                 if (accept) {

@@ -12,20 +12,32 @@ that file went:
                                                contract, slots not a stream)
     camera_rays_from_pack         :290-305     camera_rays_from_pack
     DirectTracer                  :308-324     DirectTracer
+    RecordingTracer               :327-344     RecordingTracer
     IndexRecordingTracer          :347-368     IndexRecordingTracer
     FetchReplayTracer             :370-413     FetchReplayTracer
+    ReplayTracer                  :416-445     ReplayTracer
     tile_physics                  :448-541     tile_physics
     _tile_uv                      :544-563     _tile_uv
     _seed_tile                    :566-571     none (draws are keyed by
                                                pixel and slot)
     _fwd_kernel                   :579-616     csrc/megakernel_fwd.cu and
                                                run_tiles_plain
+    _bwd_kernel ("direct")        :625-676     csrc/megakernel_bwd_retrace.cu
+                                               (TracedWinners) and
+                                               run_bwd_direct_plain
+    _route_record_grads[_chunked] :696-815     route_record_grads (index_add_;
+                                               the one-hot matmul and its
+                                               chunks are TPU VMEM tactics)
+    _bwd_kernel_replay            :818-913     csrc/megakernel_bwd_retrace.cu
+                                               (RecordedWinners) and
+                                               run_bwd_replay_plain
     _bwd_kernel_fetch             :916-981     csrc/megakernel_bwd.cu and
                                                run_bwd_plain
     effective_bwd_mode            :1006-1045   effective_bwd_mode
     _record_layout                :1057-1075   record_layout
     _run_fwd                      :1078-1111   _launch_fwd
-    _run_bwd (fetch arm)          :1127-1157   _launch_bwd, run_bwd
+    _run_bwd                      :1114-1191   backward_kernel, _launch_bwd,
+                                               run_bwd
     _make_core                    :1194-1232   TilesFunction
     _camera_pack                  :1240-1255   render/camera.py camera_pack
     render_tiles_pallas           :1258-1316   render_tiles_cuda
@@ -38,17 +50,27 @@ plane per shadow sample: plane ``b*(1+ns)`` is bounce b's closest hit, plane
 ``shadow_samples == 0``) there are ``bounces`` planes.
 
 ``tile_physics`` + ``_tile_uv`` + ``PhiloxDraws`` are the plain version of
-the forward CUDA kernel; the same ``tile_physics`` over a
-``FetchReplayTracer``, differentiated by autograd (``run_bwd_plain``), is the
-plain version of the backward CUDA kernel. The wrappers (``run_tiles``,
-``run_bwd``) take a plain version only for tensors that lie on the CPU; on
-CUDA tensors they launch the kernel or raise.
+the forward CUDA kernel. The plain versions of the three backward kernels
+are ``tile_physics`` differentiated by autograd over three tracers:
+
+    "fetch"  (K3)  FetchReplayTracer on the forward's index planes
+                   (run_bwd_plain)
+    "replay" (K4)  RecordingTracer pass, then ReplayTracer on its parameter
+                   planes, routed by route_record_grads (run_bwd_replay_plain)
+    "direct" (K5)  DirectTracer on the scene table itself
+                   (run_bwd_direct_plain)
+
+The wrappers (``run_tiles``, ``run_bwd``) take a plain version only for
+tensors that lie on the CPU; on CUDA tensors they launch the kernel or raise.
 
 Gradients: ``render_image_cuda`` of a scene or camera whose leaves require
-grad is differentiable end to end. ``TilesFunction`` is the boundary: its
-forward is the recording kernel, its backward the backward kernel, which
-replays each path from the recorded winner indices. Which object a ray hits
-and every other comparison are detached, as in the JAX package.
+grad is differentiable end to end. ``TilesFunction`` is the boundary: in
+"fetch" its forward is the recording kernel and its backward replays each
+path from the recorded winner indices; in "replay" and "direct" its forward
+is the plain forward kernel, it keeps no index planes, and its backward
+traces the paths again. ``backward_kernel`` says which kernel runs. Which
+object a ray hits and every other comparison are detached, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -63,11 +85,16 @@ from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.kernels import build
 from ray_tracing_tpu_torch.ops.cubemap import CubemapData, constant_sky, sample_cubemap
 from ray_tracing_tpu_torch.ops.intersect import (
+    UNROLL_LIMIT,
+    TraceRecord,
     _single_emissive_index,
     trace,
+    trace_record,
+    trace_replay,
     trace_replay_fetch,
     trace_shadow,
     trace_shadow_record,
+    trace_shadow_replay,
     trace_shadow_replay_fetch,
 )
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
@@ -78,12 +105,20 @@ from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, SCENE_COLS, Scene, lig
 PLANE_NAMES = ("r", "g", "b", "sx", "sy", "sz", "cr", "cg", "cb", "miss")
 KERNEL_LIBRARY = "megakernel_fwd"
 BWD_KERNEL_LIBRARY = "megakernel_bwd"
+RETRACE_KERNEL_LIBRARY = "megakernel_bwd_retrace"
+
+# The backward kernels: (library, C entry point), by backward_kernel's name.
+BWD_KERNELS = {
+    "fetch": (BWD_KERNEL_LIBRARY, "rt_megakernel_bwd"),
+    "replay": (RETRACE_KERNEL_LIBRARY, "rt_megakernel_bwd_replay"),
+    "direct": (RETRACE_KERNEL_LIBRARY, "rt_megakernel_bwd_direct"),
+}
 
 # How often each kernel was launched: one count per kernel (the forward's two
 # template instantiations count apart), raised where the launch happens and
 # nowhere else.
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
-                 "megakernel_bwd_fetch": 0}
+                 **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS}}
 
 # Device memory the winner-index planes of one differentiated frame may take
 # (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
@@ -131,6 +166,9 @@ class SceneView:
         r = self._r
         return Vec3(r[i, 0] + r[i, 3], r[i, 1] + r[i, 4], r[i, 2] + r[i, 5])
 
+    def size_of(self, i):
+        return Vec3(self._r[i, 3], self._r[i, 4], self._r[i, 5])
+
     def albedo_of(self, i):
         return Vec3(self._r[i, 6], self._r[i, 7], self._r[i, 8])
 
@@ -147,10 +185,7 @@ class SceneView:
         return Vec3(self._r[i, 12], self._r[i, 13], self._r[i, 14])
 
     def origin_of(self, i):
-        r = self._r
-        return light_origin_from(
-            self.center(i), Vec3(r[i, 3], r[i, 4], r[i, 5]), self.is_sphere(i)
-        )
+        return light_origin_from(self.center(i), self.size_of(i), self.is_sphere(i))
 
     def packed_rows(self):
         return self._r
@@ -210,9 +245,29 @@ class IndexRecordingTracer(DirectTracer):
         return h
 
     def trace_shadow(self, ro, rd):
-        hit, emiss, obj = trace_shadow_record(self.scene, ro, rd)
-        self.objs.append(obj)
-        return hit, emiss
+        out, rec = trace_shadow_record(self.scene, ro, rd)
+        self.objs.append(rec.obj)
+        return out
+
+
+class RecordingTracer(DirectTracer):
+    """Pass 1 of the "replay" backward: the closest-hit trace against the
+    scene, keeping each call's TraceRecord / ShadowRecord in call order in
+    `records`."""
+
+    def __init__(self, scene):
+        super().__init__(scene)
+        self.records = []
+
+    def trace(self, ro, rd):
+        h, rec = trace_record(self.scene, ro, rd)
+        self.records.append(rec)
+        return h
+
+    def trace_shadow(self, ro, rd):
+        out, rec = trace_shadow_record(self.scene, ro, rd)
+        self.records.append(rec)
+        return out
 
 
 class FetchReplayTracer:
@@ -256,6 +311,36 @@ class FetchReplayTracer:
             Vec3(r[li, 3], r[li, 4], r[li, 5]),
             self._obj_type[li] == OBJ_SPHERE,
         )
+
+
+class ReplayTracer:
+    """Pass 2 of the "replay" backward: no loop over the objects. Pops the
+    records in tile_physics's call order and rebuilds each hit from them
+    (trace_replay, trace_shadow_replay). The light's geometry comes in as
+    explicit leaves (p0, p1) so that its origin stays differentiable."""
+
+    def __init__(self, records, has_light, light_geom=None, light_is_sphere=False):
+        self._records = list(records)
+        self._i = 0
+        self.has_light = has_light
+        self._light_geom = light_geom
+        self._light_is_sphere = light_is_sphere
+
+    def _next(self):
+        rec = self._records[self._i]
+        self._i += 1
+        return rec
+
+    def trace(self, ro, rd):
+        return trace_replay(self._next(), ro, rd)
+
+    def trace_shadow(self, ro, rd):
+        del ro, rd  # occlusion is detached; the emission is the record's leaf
+        return trace_shadow_replay(self._next())
+
+    def light_origin(self):
+        p0, p1 = self._light_geom
+        return light_origin_from(p0, p1, self._light_is_sphere)
 
 
 def tile_physics(scene, cam, u, v, draws, config: RenderConfig, shape,
@@ -485,8 +570,11 @@ def _kernel_function():
     return _load(KERNEL_LIBRARY, "rt_megakernel_fwd", [ctypes.c_void_p] * 4 + _SCALAR_ARGS)
 
 
-def _bwd_kernel_function():
-    return _load(BWD_KERNEL_LIBRARY, "rt_megakernel_bwd", [ctypes.c_void_p] * 7 + _SCALAR_ARGS)
+def _bwd_kernel_function(kernel: str):
+    """The loaded C entry point of a backward kernel (BWD_KERNELS); all
+    three take the same arguments."""
+    library, entry = BWD_KERNELS[kernel]
+    return _load(library, entry, [ctypes.c_void_p] * 7 + _SCALAR_ARGS)
 
 
 def _check_tensor(name, t, shape, dtype, device):
@@ -593,50 +681,195 @@ def replay_planes(job: TileJob, rows, cam_pack, u, v, draws, records):
     return torch.stack(outs)
 
 
+def _vjp(outputs, inputs, cotangents):
+    """autograd.grad of `outputs` against `cotangents`, a zero tensor for an
+    input that nothing differentiable reached."""
+    grads = torch.autograd.grad(outputs, inputs, grad_outputs=cotangents, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+
+
 def replay_vjp(job: TileJob, u, v, draws, records, cotangents):
-    """The backward kernel's math in plain PyTorch: replay_planes on the
-    job's (detached) scene rows and camera pack, differentiated by autograd
-    against the (10,H,W) `cotangents`. Returns (planes (10,H,W), g_rows
-    (N,16), g_cam (16,))."""
+    """The fetch backward kernel's math in plain PyTorch: replay_planes on
+    the job's (detached) scene rows and camera pack, differentiated by
+    autograd against the (10,H,W) `cotangents`. Returns (planes (10,H,W),
+    g_rows (N,16), g_cam (16,))."""
     rows = job.rows.detach().requires_grad_(True)
     cam = job.cam_pack.detach().requires_grad_(True)
     with torch.enable_grad():
         planes = replay_planes(job, rows, cam, u, v, draws, records)
-    g_rows, g_cam = torch.autograd.grad(planes, [rows, cam], grad_outputs=cotangents,
-                                        allow_unused=True)
-    if g_rows is None:
-        g_rows = torch.zeros_like(rows)
-    if g_cam is None:
-        g_cam = torch.zeros_like(cam)
+    g_rows, g_cam = _vjp(planes, [rows, cam], cotangents)
     return planes.detach(), g_rows, g_cam
 
 
 def run_bwd_plain(job: TileJob, seed: int, row0: int, records, cotangents):
-    """The plain PyTorch version of the backward CUDA kernel: regenerates
-    the draws of (seed, pixel, slot) and the jitter, replays the paths from
-    `records` and returns (g_rows (N,16), g_cam (16,))."""
+    """The plain PyTorch version of the fetch backward CUDA kernel (K3):
+    regenerates the draws of (seed, pixel, slot) and the jitter, replays the
+    paths from `records` and returns (g_rows (N,16), g_cam (16,))."""
     u, v, draws = _sample_inputs(job, seed, row0)
     _, g_rows, g_cam = replay_vjp(job, u, v, draws, records, cotangents)
     return g_rows, g_cam
 
 
-def _launch_bwd(job: TileJob, seed: int, row0: int, records, cotangents,
+def _record_planes(rec):
+    """(first column, planes in column order) of a record's differentiable
+    planes: the 15 of a TraceRecord from column 0, the 3 emission planes of
+    a ShadowRecord from column 12."""
+    if isinstance(rec, TraceRecord):
+        return 0, [rec.p0.x, rec.p0.y, rec.p0.z, rec.p1.x, rec.p1.y, rec.p1.z,
+                   rec.albedo.x, rec.albedo.y, rec.albedo.z,
+                   rec.roughness, rec.reflectance, rec.metallic,
+                   rec.emission.x, rec.emission.y, rec.emission.z]
+    return 12, [rec.emission.x, rec.emission.y, rec.emission.z]
+
+
+def _with_planes(rec, planes):
+    """The record with its differentiable planes replaced (_record_planes'
+    order)."""
+    if isinstance(rec, TraceRecord):
+        p = planes
+        return dataclasses.replace(
+            rec, p0=Vec3(*p[0:3]), p1=Vec3(*p[3:6]), albedo=Vec3(*p[6:9]),
+            roughness=p[9], reflectance=p[10], metallic=p[11], emission=Vec3(*p[12:15]))
+    return dataclasses.replace(rec, emission=Vec3(*planes))
+
+
+def route_record_grads(n: int, records, g_records):
+    """(N,16) row gradients from the cotangents of the records' planes:
+
+        G[i, c] = sum over records r, pixels p with r.obj[p] == i of g_r[c][p]
+
+    `g_records` are records of the same kinds whose planes hold the
+    cotangents (None: zero). A miss (-1) routes nowhere; a shadow record
+    routes its emission only. One index_add_ per record."""
+    dev = records[0].obj.device
+    G = torch.zeros((n, SCENE_COLS), dtype=torch.float32, device=dev)
+    for rec, g in zip(records, g_records):
+        first, planes = _record_planes(g)
+        idx = rec.obj.reshape(-1)
+        keep = idx >= 0
+        zero = torch.zeros(idx.shape, dtype=torch.float32, device=dev)
+        vals = torch.stack([zero if t is None else t.reshape(-1) for t in planes], dim=1)
+        G[:, first:first + len(planes)].index_add_(0, idx[keep].long(), vals[keep])
+    return G
+
+
+def record_replay_vjp(job: TileJob, u, v, draws, cotangents):
+    """The "replay" backward kernel's math in plain PyTorch, as the JAX
+    package's _bwd_kernel_replay computes it: pass 1 traces the paths
+    against the scene with a RecordingTracer (no graph); pass 2 runs
+    tile_physics over a ReplayTracer whose record planes, camera pack and
+    light geometry are leaves, and autograd takes its VJP against the
+    (10,H,W) `cotangents`; the record cotangents are routed to (N,16) rows
+    (route_record_grads) and the light's origin gradient is added to its
+    row. Returns (planes (10,H,W), g_rows (N,16), g_cam (16,), g_light (6,):
+    the light-origin part of g_rows, zero while occlusion is detached)."""
+    cfg = job.config
+    shape = (job.height, job.width)
+    view = SceneView(job.rows.detach(), job.obj_type, job.light_index, job.emissive)
+    recorder = RecordingTracer(view)
+    with torch.no_grad():
+        tile_physics(view, job.cam_pack.detach(), u, v, draws, cfg, shape, tracer=recorder)
+
+    leaves, records = [], []
+    for rec in recorder.records:
+        _, planes = _record_planes(rec)
+        lv = [t.detach().clone().requires_grad_(True) for t in planes]
+        leaves.append(lv)
+        records.append(_with_planes(rec, lv))
+    cam = job.cam_pack.detach().requires_grad_(True)
+    li = job.light_index
+    has_light = li >= 0
+    light, geom = [], None
+    if has_light:
+        light = [job.rows[li, k].detach().clone().requires_grad_(True) for k in range(6)]
+        geom = (Vec3(*light[0:3]), Vec3(*light[3:6]))
+    with torch.enable_grad():
+        tracer = ReplayTracer(records, has_light, geom,
+                              has_light and job.obj_type[li] == OBJ_SPHERE)
+        planes = torch.stack(tile_physics(None, cam, u, v, draws, cfg, shape, tracer=tracer))
+
+    flat = [t for lv in leaves for t in lv]
+    grads = _vjp(planes, flat + [cam] + light, cotangents)
+    g_records, k = [], 0
+    for rec, lv in zip(recorder.records, leaves):
+        g_records.append(_with_planes(rec, grads[k:k + len(lv)]))
+        k += len(lv)
+    g_cam = grads[k]
+    g_rows = route_record_grads(len(job.obj_type), recorder.records, g_records)
+    g_light = torch.stack(grads[k + 1:]) if has_light else torch.zeros(6, device=g_rows.device)
+    if has_light:
+        g_rows[li, 0:6] += g_light
+    return planes.detach(), g_rows, g_cam, g_light
+
+
+def direct_vjp(job: TileJob, u, v, draws, cotangents):
+    """The "direct" backward kernel's math in plain PyTorch, as the JAX
+    package's _bwd_kernel computes it: autograd straight through
+    tile_physics and the closest-hit trace over the scene table. Returns
+    (planes (10,H,W), g_rows (N,16), g_cam (16,))."""
+    rows = job.rows.detach().requires_grad_(True)
+    cam = job.cam_pack.detach().requires_grad_(True)
+    with torch.enable_grad():
+        view = SceneView(rows, job.obj_type, job.light_index, job.emissive)
+        planes = torch.stack(tile_physics(view, cam, u, v, draws, job.config,
+                                          (job.height, job.width)))
+    g_rows, g_cam = _vjp(planes, [rows, cam], cotangents)
+    return planes.detach(), g_rows, g_cam
+
+
+def run_bwd_replay_plain(job: TileJob, seed: int, row0: int, cotangents):
+    """The plain PyTorch version of the "replay" backward CUDA kernel (K4):
+    (g_rows (N,16), g_cam (16,)) of one sample, the draws regenerated from
+    (seed, pixel, slot) as the forward drew them."""
+    u, v, draws = _sample_inputs(job, seed, row0)
+    _, g_rows, g_cam, _ = record_replay_vjp(job, u, v, draws, cotangents)
+    return g_rows, g_cam
+
+
+def run_bwd_direct_plain(job: TileJob, seed: int, row0: int, cotangents):
+    """The plain PyTorch version of the "direct" backward CUDA kernel (K5):
+    (g_rows (N,16), g_cam (16,)) of one sample."""
+    u, v, draws = _sample_inputs(job, seed, row0)
+    _, g_rows, g_cam = direct_vjp(job, u, v, draws, cotangents)
+    return g_rows, g_cam
+
+
+def backward_kernel(job: TileJob) -> str:
+    """The backward kernel run_bwd runs for `job`, picked as the JAX
+    package's _run_bwd picks it: "fetch" (K3) in fetch mode; "direct" (K5)
+    in direct mode up to UNROLL_LIMIT objects; "replay" (K4) otherwise,
+    direct mode above the limit included (effective_bwd_mode still says
+    "direct" there, as the JAX function does)."""
+    mode = job.config.bwd_mode
+    if mode == "fetch":
+        return "fetch"
+    if mode == "direct" and len(job.obj_type) <= UNROLL_LIMIT:
+        return "direct"
+    return "replay"
+
+
+def _launch_bwd(kernel: str, job: TileJob, seed: int, row0: int, records, cotangents,
                 want_primal: bool = False):
-    """Launch the backward CUDA kernel on PyTorch's current stream: (g_rows
-    (N,16), g_cam (16,)), and with `want_primal` also the ten planes its
-    forward replay arrives at (a check that forward and backward walk the
-    same paths). Does not synchronise; raises when the launch is refused."""
+    """Launch the backward CUDA kernel `kernel` ("fetch", "replay" or
+    "direct") on PyTorch's current stream: (g_rows (N,16), g_cam (16,)), and
+    with `want_primal` also the ten planes its forward walk arrives at (a
+    check that forward and backward walk the same paths). `records` are the
+    fetch kernel's index planes and None for the other two. Does not
+    synchronise; raises when the launch is refused."""
     _check_job(job)
     dev = job.rows.device
     frame = (job.height, job.width)
-    n_rec = record_layout(job.config, job.light_index >= 0)
-    _check_tensor("records", records, (n_rec, *frame), torch.int32, dev)
+    if kernel == "fetch":
+        n_rec = record_layout(job.config, job.light_index >= 0)
+        _check_tensor("records", records, (n_rec, *frame), torch.int32, dev)
+    elif records is not None:
+        raise ValueError(f"the {kernel} backward takes no index planes")
     if not isinstance(cotangents, torch.Tensor) or tuple(cotangents.shape) != (10, *frame):
         raise ValueError(f"cotangents must be a (10, {job.height}, {job.width}) tensor")
     # autograd may hand over expanded or strided cotangents
     cotangents = cotangents.contiguous()
     _check_tensor("cotangents", cotangents, (10, *frame), torch.float32, dev)
-    lib, fn = _bwd_kernel_function()
+    lib, fn = _bwd_kernel_function(kernel)
     with torch.cuda.device(dev):
         # the kernel adds into these with atomics
         g_rows = torch.zeros((len(job.obj_type), SCENE_COLS), dtype=torch.float32, device=dev)
@@ -644,23 +877,30 @@ def _launch_bwd(job: TileJob, seed: int, row0: int, records, cotangents,
         primal = torch.empty((10, *frame), dtype=torch.float32, device=dev) if want_primal else None
         err = fn(
             job.rows.data_ptr(), job.cam_pack.data_ptr(), cotangents.data_ptr(),
-            records.data_ptr(), g_rows.data_ptr(), g_cam.data_ptr(),
+            records.data_ptr() if records is not None else None,
+            g_rows.data_ptr(), g_cam.data_ptr(),
             primal.data_ptr() if want_primal else None, *_scalar_args(job, seed, row0),
         )
-    _raise_on(err, lib, "megakernel_bwd")
-    launch_counts["megakernel_bwd_fetch"] += 1
+    name = "megakernel_bwd_" + kernel
+    _raise_on(err, lib, name)
+    launch_counts[name] += 1
     return (g_rows, g_cam, primal) if want_primal else (g_rows, g_cam)
 
 
 def run_bwd(job: TileJob, seed: int, row0: int, records, cotangents):
     """Gradients of one sample with respect to the scene rows and the camera
-    pack: the CUDA kernel for a job on the card, the plain version for a job
-    on the CPU. Nothing else decides between them."""
+    pack, through backward_kernel(job): its CUDA kernel for a job on the
+    card, its plain version for a job on the CPU. Nothing else decides
+    between them. `records`: the fetch kernel's index planes, else None."""
+    kernel = backward_kernel(job)
     if job.rows.device.type == "cuda":
-        return _launch_bwd(job, seed, row0, records, cotangents)
+        return _launch_bwd(kernel, job, seed, row0, records, cotangents)
     if job.rows.device.type != "cpu":
         raise ValueError(f"unsupported device {job.rows.device}")
-    return run_bwd_plain(job, seed, row0, records, cotangents)
+    if kernel == "fetch":
+        return run_bwd_plain(job, seed, row0, records, cotangents)
+    plain = run_bwd_replay_plain if kernel == "replay" else run_bwd_direct_plain
+    return plain(job, seed, row0, cotangents)
 
 
 def effective_bwd_mode(scene: Scene, config: RenderConfig, width: int,
@@ -669,8 +909,10 @@ def effective_bwd_mode(scene: Scene, config: RenderConfig, width: int,
 
     bwd_mode="fetch" keeps one int32 winner-index plane per trace call per
     sample alive until backward(); past FETCH_RECORD_BUDGET_BYTES the mode
-    becomes "replay", which records nothing. Any other configured mode is
-    returned as it is. Exposed so that a caller can log the mode it ran."""
+    becomes "replay", which keeps none. Any other configured mode is
+    returned as it is, as the JAX function returns it ("direct" above
+    UNROLL_LIMIT objects runs the replay kernel: backward_kernel names the
+    kernel). Exposed so that a caller can log the mode it ran."""
     if config.bwd_mode != "fetch":
         return config.bwd_mode
     has_light = scene.has_light and config.shadow_samples > 0
@@ -685,20 +927,18 @@ class TilesFunction(torch.autograd.Function):
     scene rows and the camera pack. The job's static part, the integer seed
     and row0 are not tensors (a seed of 2^24 or more stays exact).
 
-    forward: the recording launch when an input requires grad, saving the
-    winner-index planes; else the non-recording launch. backward: run_bwd."""
+    forward: the recording launch when an input requires grad and the
+    backward is "fetch", saving the winner-index planes; else the
+    non-recording launch, which saves no index planes ("replay" and "direct"
+    keep the rows, the camera pack, the seed and row0 only). backward:
+    run_bwd."""
 
     @staticmethod
     def forward(ctx, rows, cam_pack, job, seed, row0):
         needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        if needs_grad and job.config.bwd_mode != "fetch":
-            raise NotImplementedError(
-                f"bwd_mode {job.config.bwd_mode!r} is not ported yet: only the "
-                'fetch backward (TPU kernel K3) has its CUDA kernel; "replay" '
-                '(K4) and "direct" (K5) come with a later slice'
-            )
         job = dataclasses.replace(job, rows=rows.detach(), cam_pack=cam_pack.detach())
-        planes, records = run_tiles(job, seed, row0, record=needs_grad)
+        record = needs_grad and backward_kernel(job) == "fetch"
+        planes, records = run_tiles(job, seed, row0, record=record)
         if needs_grad:
             ctx.save_for_backward(job.rows, job.cam_pack, records)
             ctx.job = dataclasses.replace(job, rows=None, cam_pack=None)
@@ -813,9 +1053,9 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
 
     Takes the statistics of render_image (render/integrator.py) and the
     very same random numbers. Differentiable end to end: when a leaf of
-    `scene` or `camera` requires grad, each sample runs the recording
-    kernel and backward() runs the backward kernel (effective_bwd_mode says
-    which mode that is; a mode other than "fetch" raises under grad).
+    `scene` or `camera` requires grad, backward() runs a backward kernel per
+    sample (effective_bwd_mode says which mode, backward_kernel which
+    kernel); in "fetch" each sample's forward is the recording kernel.
     row0/norm_height/aspect as in render_tiles_cuda. device=None means the
     card and raises without one; device="cpu" runs the plain versions."""
     device = resolve_device(device)

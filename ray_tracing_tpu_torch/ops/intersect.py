@@ -16,10 +16,12 @@ Semantics, faithful to the reference renderer:
 Every function here is safe to differentiate: which object wins, which root
 or face is taken and every other comparison are detached decisions, and no
 lane produces an infinite partial that could meet a zero cotangent
-(``ray_inverses``). ``trace_replay_fetch`` and ``trace_shadow_replay_fetch``
-rebuild a hit from a recorded winner index and the packed scene table with
-no loop over the objects: the backward pass's stand-ins for ``trace`` and
-``trace_shadow``.
+(``ray_inverses``). The backward passes' stand-ins for ``trace`` and
+``trace_shadow`` rebuild a hit with no loop over the objects:
+``trace_replay_fetch`` / ``trace_shadow_replay_fetch`` from a recorded winner
+index and the packed scene table (the "fetch" backward), ``trace_replay`` /
+``trace_shadow_replay`` from the winner's parameter planes that
+``trace_record`` / ``trace_shadow_record`` recorded (the "replay" backward).
 """
 
 from __future__ import annotations
@@ -33,6 +35,11 @@ from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE
 
 BIG = 3.4e38           # stand-in for FLT_MAX
 HIT_THRESHOLD = 1e37   # anything below this is a real hit
+
+# Largest scene the "direct" backward differentiates through the whole
+# trace; above it that mode runs the "replay" backward (the JAX package's
+# _run_bwd rule; its unrolled trace loop ends here too).
+UNROLL_LIMIT = 48
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,9 +188,33 @@ def _intersect(scene, i: int, ro: Vec3, d: Vec3, a, inv2a, inv: RayInverses):
     return intersect_cube(ro, d, scene.box_lo(i), scene.box_hi(i), inv)
 
 
+@dataclasses.dataclass(frozen=True)
+class TraceRecord:
+    """The winner of one closest-hit call, per ray: enough to rebuild the Hit
+    differentiably (trace_replay) and to route its gradients back to the
+    winner's row. Masks are float 0/1, as in the JAX package."""
+
+    obj: torch.Tensor          # int32 winner index; -1 on miss
+    hit: torch.Tensor          # float32 0/1
+    is_sph: torch.Tensor       # float32 0/1
+    p0: Vec3                   # winner row cols 0-2 (center / box origin)
+    p1: Vec3                   # winner row cols 3-5 (radius x3 / box size)
+    albedo: Vec3
+    roughness: torch.Tensor
+    reflectance: torch.Tensor
+    metallic: torch.Tensor
+    emission: Vec3
+
+
 def trace(scene, ro: Vec3, rd: Vec3) -> Hit:
     """Closest hit with the winner's material, batched over ro/rd's shape.
     `Hit.obj` is the winner index the index-recording kernel stores."""
+    return _trace(scene, ro, rd, record=False)
+
+
+def _trace(scene, ro: Vec3, rd: Vec3, record: bool):
+    """The object loop of trace() and trace_record(): with `record` it also
+    keeps the winner's parameter planes and returns (Hit, TraceRecord)."""
     d, a, shape, inv2a, inv = _ray_setup(ro, rd)
     dev = d.x.device
 
@@ -193,6 +224,7 @@ def trace(scene, ro: Vec3, rd: Vec3) -> Hit:
     obj_best = torch.full(shape, -1, dtype=torch.int32, device=dev)
     sphere_win = torch.zeros(shape, dtype=torch.bool, device=dev)
     center_best = zero3
+    p1_best = zero3
     cube_n_best = zero3
     albedo_best = zero3
     rough_best = zeros
@@ -211,6 +243,12 @@ def trace(scene, ro: Vec3, rd: Vec3) -> Hit:
         else:
             sphere_win = sphere_win & ~win
             cube_n_best = Vec3.where(win, n_i, cube_n_best)
+            if record:
+                # the record's p0 is the row origin for both kinds; the Hit
+                # reads center_best on sphere lanes only
+                center_best = Vec3.where(win, scene.box_lo(i), center_best)
+        if record:
+            p1_best = Vec3.where(win, _p1_of(scene, i), p1_best)
         albedo_best = Vec3.where(win, scene.albedo_of(i), albedo_best)
         rough_best = torch.where(win, scene.roughness_of(i), rough_best)
         refl_best = torch.where(win, scene.reflectance_of(i), refl_best)
@@ -219,11 +257,39 @@ def trace(scene, ro: Vec3, rd: Vec3) -> Hit:
 
     hit = t_best < HIT_THRESHOLD
     point, normal = _finish_hit(hit, t_best, sphere_win, center_best, cube_n_best, ro, d)
-    return Hit(
+    h = Hit(
         t=t_best, hit=hit, obj=obj_best, point=point, normal=normal,
         albedo=albedo_best, roughness=rough_best, reflectance=refl_best,
         metallic=metal_best, emission=emiss_best,
     )
+    if not record:
+        return h
+    rec = TraceRecord(
+        obj=obj_best, hit=hit.to(torch.float32), is_sph=sphere_win.to(torch.float32),
+        p0=center_best.broadcast_to(shape), p1=p1_best.broadcast_to(shape),
+        albedo=albedo_best.broadcast_to(shape), roughness=rough_best.broadcast_to(shape),
+        reflectance=refl_best.broadcast_to(shape), metallic=metal_best.broadcast_to(shape),
+        emission=emiss_best.broadcast_to(shape),
+    )
+    return h, rec
+
+
+def _p1_of(scene, i: int) -> Vec3:
+    """Row cols 3-5 of object i as the record keeps them: (r, r, r) for a
+    sphere, the box's size for a cube. The JAX package's unrolled recorder
+    keeps hi - lo for a box, which can differ from the size in its last bit;
+    the size itself (what its scan recorder keeps, and what the CUDA kernel
+    reads) lets trace_replay rebuild hi = lo + size exactly as trace() did."""
+    if scene.is_sphere(i):
+        r = scene.radius(i)
+        return Vec3(r, r, r)
+    return scene.size_of(i)
+
+
+def trace_record(scene, ro: Vec3, rd: Vec3):
+    """(Hit, TraceRecord): trace() that also keeps the winner's parameter
+    planes, for the "replay" backward."""
+    return _trace(scene, ro, rd, record=True)
 
 
 def _occlude_sphere_masks(ro: Vec3, d: Vec3, a, center: Vec3, radius, at_ref):
@@ -323,21 +389,75 @@ def _trace_shadow_unrolled(scene, ro: Vec3, rd: Vec3):
     return hit, emiss_best, obj_best
 
 
+@dataclasses.dataclass(frozen=True)
+class ShadowRecord:
+    """The winner of one shadow trace: the occlusion bit (detached) and the
+    nearest object's emission, the only shadow quantity a gradient flows
+    through."""
+
+    obj: torch.Tensor   # int32 winner index; -1 on miss
+    hit: torch.Tensor   # float32 0/1
+    emission: Vec3
+
+
 def trace_shadow_record(scene, ro: Vec3, rd: Vec3):
-    """Light-sampling trace: (hit, emission of the nearest object, winner
-    index). Single-light scenes (per the static `emissive` metadata) take
-    the occlusion-only trace; several lights or `emissive=None` take the
-    full scan."""
+    """Light-sampling trace: ((hit, emission of the nearest object),
+    ShadowRecord). Single-light scenes (per the static `emissive` metadata)
+    take the occlusion-only trace, whose winner is that light or -1; several
+    lights or `emissive=None` take the full scan."""
     li = _single_emissive_index(scene)
     if li is not None:
-        return _trace_shadow_occlusion(scene, ro, rd, li)
-    return _trace_shadow_unrolled(scene, ro, rd)
+        hit, emiss, obj = _trace_shadow_occlusion(scene, ro, rd, li)
+    else:
+        hit, emiss, obj = _trace_shadow_unrolled(scene, ro, rd)
+    return (hit, emiss), ShadowRecord(obj=obj, hit=hit.to(torch.float32), emission=emiss)
 
 
 def trace_shadow(scene, ro: Vec3, rd: Vec3):
     """(hit, emission of the nearest object) for light-sampling rays."""
-    hit, emiss, _ = trace_shadow_record(scene, ro, rd)
-    return hit, emiss
+    out, _ = trace_shadow_record(scene, ro, rd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Replay: a hit rebuilt from recorded winner parameters
+# ---------------------------------------------------------------------------
+
+
+def _replay_hit(obj, hit, is_sph, p0: Vec3, p1: Vec3, albedo: Vec3, roughness,
+                reflectance, metallic, emission: Vec3, ro: Vec3, rd: Vec3) -> Hit:
+    """A Hit recomputed from its winner's parameters with the very operations
+    trace() applies to that winner, so that its values are the forward's
+    bit for bit and its derivatives those of autograd through the full
+    running-min trace. hit / is_sph are detached booleans."""
+    d = rd.normalize()
+    a = d.dot(d)
+    shape = torch.broadcast_shapes(ro.shape, d.shape)
+    ro = ro.broadcast_to(shape)
+    t_s = intersect_sphere(ro, d, a, p0, p1.x)
+    t_c, n_c = intersect_cube(ro, d, p0, p0 + p1)
+    t = torch.where(is_sph, t_s, t_c)
+    t = torch.where(hit, t, BIG)  # a miss carries all-zero parameters: mask it
+    point, normal = _finish_hit(hit, t, is_sph, p0, n_c, ro, d)
+    return Hit(
+        t=t, hit=hit, obj=obj, point=point, normal=normal, albedo=albedo,
+        roughness=roughness, reflectance=reflectance, metallic=metallic, emission=emission,
+    )
+
+
+def trace_replay(rec: TraceRecord, ro: Vec3, rd: Vec3) -> Hit:
+    """Differentiable Hit from a TraceRecord: the "replay" backward's
+    stand-in for trace(). The winner CHOICE (obj, hit, is_sph) is detached
+    path topology; every continuous quantity is a function of the record's
+    parameter planes, ro and rd."""
+    return _replay_hit(rec.obj, rec.hit > 0.5, rec.is_sph > 0.5, rec.p0, rec.p1, rec.albedo,
+                       rec.roughness, rec.reflectance, rec.metallic, rec.emission, ro, rd)
+
+
+def trace_shadow_replay(rec: ShadowRecord):
+    """Differentiable (hit, emission) from a ShadowRecord: the emission is
+    the leaf, the occlusion bit is detached."""
+    return rec.hit > 0.5, rec.emission
 
 
 # ---------------------------------------------------------------------------
@@ -356,35 +476,17 @@ def fetch_winner_rows(rows, obj):
 
 def trace_replay_fetch(rows, obj, ro: Vec3, rd: Vec3) -> Hit:
     """Differentiable Hit from a recorded winner-index plane `obj` and the
-    packed (N,16) scene table: the backward pass's stand-in for trace().
+    packed (N,16) scene table: the "fetch" backward's stand-in for trace().
 
     The winner CHOICE is detached path topology; t, point, normal and the
-    material are recomputed from the winner's own row with the very
-    operations trace() applies to it, so the primal values are those of the
-    forward bit for bit and their derivatives are those of autograd through
-    the full running-min trace. Column 15, the type tag, is read detached."""
-    d = rd.normalize()
-    a = d.dot(d)
-    shape = torch.broadcast_shapes(ro.shape, d.shape)
-    ro = ro.broadcast_to(shape)
-
+    material are recomputed from the winner's own row (_replay_hit). Column
+    15, the type tag, is read detached."""
     cols = fetch_winner_rows(rows, obj).unbind(-1)
-    hit = obj >= 0
-    p0 = Vec3(cols[0], cols[1], cols[2])
-    p1 = Vec3(cols[3], cols[4], cols[5])
-    is_sph = cols[15].detach() == float(OBJ_SPHERE)
-
-    t_s = intersect_sphere(ro, d, a, p0, p1.x)
-    t_c, n_c = intersect_cube(ro, d, p0, p0 + p1)
-    t = torch.where(is_sph, t_s, t_c)
-    t = torch.where(hit, t, BIG)  # a miss fetched an all-zero row: mask it
-
-    point, normal = _finish_hit(hit, t, is_sph, p0, n_c, ro, d)
-    return Hit(
-        t=t, hit=hit, obj=obj, point=point, normal=normal,
-        albedo=Vec3(cols[6], cols[7], cols[8]), roughness=cols[9],
-        reflectance=cols[10], metallic=cols[11],
-        emission=Vec3(cols[12], cols[13], cols[14]),
+    return _replay_hit(
+        obj, obj >= 0, cols[15].detach() == float(OBJ_SPHERE),
+        Vec3(cols[0], cols[1], cols[2]), Vec3(cols[3], cols[4], cols[5]),
+        Vec3(cols[6], cols[7], cols[8]), cols[9], cols[10], cols[11],
+        Vec3(cols[12], cols[13], cols[14]), ro, rd,
     )
 
 

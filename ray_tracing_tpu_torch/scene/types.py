@@ -136,6 +136,10 @@ class Scene:
             self.p0[i, 2] + self.p1[i, 2],
         )
 
+    def size_of(self, i: int) -> Vec3:
+        """p1 of object i: (radius,)*3 of a sphere, the size of a box."""
+        return Vec3(self.p1[i, 0], self.p1[i, 1], self.p1[i, 2])
+
     def albedo_of(self, i: int) -> Vec3:
         return Vec3(self.albedo[i, 0], self.albedo[i, 1], self.albedo[i, 2])
 
@@ -159,11 +163,7 @@ class Scene:
 
     def origin_of(self, i: int) -> Vec3:
         """Object 'origin' for light sampling (light_origin_from)."""
-        return light_origin_from(
-            self.center(i),
-            Vec3(self.p1[i, 0], self.p1[i, 1], self.p1[i, 2]),
-            self.is_sphere(i),
-        )
+        return light_origin_from(self.center(i), self.size_of(i), self.is_sphere(i))
 
     def packed_rows(self) -> torch.Tensor:
         """(N, 16) float32 parameter rows; the layout is in the module

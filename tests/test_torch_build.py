@@ -73,7 +73,10 @@ def test_the_shipped_sources_include_the_shared_header():
     it, and the package data of an installed copy lists it."""
     real = build.CSRC_DIR
     assert (real / "rt_device.cuh").is_file()
-    for name in ("megakernel_fwd", "megakernel_bwd"):
+    assert (real / "rt_backward.cuh").is_file()
+    for name in ("megakernel_fwd", "megakernel_bwd", "megakernel_bwd_retrace"):
         assert '#include "rt_device.cuh"' in (real / f"{name}.cu").read_text()
+    for name in ("megakernel_bwd", "megakernel_bwd_retrace"):
+        assert '#include "rt_backward.cuh"' in (real / f"{name}.cu").read_text()
     pyproject = real.parents[2] / "pyproject.toml"
     assert '"kernels/csrc/*.cuh"' in pyproject.read_text()

@@ -167,11 +167,14 @@ def test_launch_counts_do_not_move_on_the_cpu():
     tmk.reset_launch_counts()
     out = tmk.render_tiles_cuda(ts, TCamera.default("cpu"), 16, 8, seed=1, device="cpu", record=True)
     assert set(out) == set(tmk.PLANE_NAMES) | {"records"}
-    leaf = dataclasses.replace(ts, albedo=ts.albedo.clone().requires_grad_())
-    tmk.render_image_cuda(leaf, TCamera.default("cpu"), 16, 8, seed=1, device="cpu").sum().backward()
-    assert leaf.albedo.grad is not None
+    for mode in ("fetch", "replay", "direct"):
+        leaf = dataclasses.replace(ts, albedo=ts.albedo.clone().requires_grad_())
+        tmk.render_image_cuda(leaf, TCamera.default("cpu"), 16, 8, seed=1, device="cpu",
+                              config=TCfg(bwd_mode=mode)).sum().backward()
+        assert leaf.albedo.grad is not None
     assert tmk.launch_counts == {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
-                                 "megakernel_bwd_fetch": 0}
+                                 "megakernel_bwd_fetch": 0, "megakernel_bwd_replay": 0,
+                                 "megakernel_bwd_direct": 0}
 
 
 def test_sample_seeds_wrap_like_int32():

@@ -158,7 +158,8 @@ def test_trace_and_trace_shadow(name):
     sd = (lo - pts + 0.5 * r.uniform(-1, 1, pts.shape)).astype(np.float32)
     so = (pts + 1e-3 * sd / np.linalg.norm(sd, axis=0, keepdims=True)).astype(np.float32)
     (hit_j, em_j), rec_j = jint.trace_shadow_record(js, U.jvec(so), U.jvec(sd))
-    hit_t, em_t, obj_t = tint.trace_shadow_record(ts, U.tvec(so), U.tvec(sd))
+    (hit_t, em_t), rec_t = tint.trace_shadow_record(ts, U.tvec(so), U.tvec(sd))
+    obj_t = rec_t.obj
     hit_t2, em_t2 = tint.trace_shadow(ts, U.tvec(so), U.tvec(sd))
     np.testing.assert_array_equal(hit_t.numpy(), hit_t2.numpy())
     agree = np.asarray(rec_j.obj) == obj_t.numpy()
