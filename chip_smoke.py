@@ -3,18 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA megakernels (the forward; the three backward kernels "fetch",
-"replay" and "direct") from the sources in this checkout, holds each against
-its plain PyTorch version on the card, renders the serving path (scene_2 and a
-lit room at 1920x1080, default physics, a 2048^2 packed cubemap) through the
-entry points a user would call, runs the command line, then drives the
-training path at the same size (the gradient of a frame's sum, five steps of
-`fit` in fetch and in direct mode, a 100-sample gradient past the fetch
-budget, which runs "replay", the invert app) and times the kernels. Every
-phase prints one JSON line with the seconds it took (about 100 in all on an
-H100, the kernels' build included); any phase that fails raises and the run
-exits non-zero. Needs one CUDA device and nvcc; imports nothing of JAX. The
-last line of standard output is
+Builds the CUDA kernels (the forward megakernel; the three backward kernels
+"fetch", "replay" and "direct"; the FMA peak kernel and the gather probe) from
+the sources in this checkout, holds each against its plain PyTorch version on
+the card, renders the serving path (scene_2 and a lit room at 1920x1080,
+default physics, a 2048^2 packed cubemap) through the entry points a user
+would call, runs the command line, then drives the training path at the same
+size (the gradient of a frame's sum, five steps of `fit` in fetch and in
+direct mode, a 100-sample gradient past the fetch budget, which runs
+"replay", the invert app), the measurement path (the port's bench, whose JSON
+line it prints on a line of its own, and the gather probe with the sparse sky
+cache on and off) and times the kernels. Every phase prints one JSON line
+with the seconds it took (about two minutes in all on an H100, the kernels'
+build included); any phase that fails raises and the run exits non-zero.
+Needs one CUDA device and nvcc; imports nothing of JAX. The last line of
+standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 """
@@ -34,20 +37,23 @@ import time
 
 import torch
 
+from ray_tracing_tpu_torch import bench
 from ray_tracing_tpu_torch.apps.cli import main as cli_main
 from ray_tracing_tpu_torch.apps.invert import main as invert_main
 from ray_tracing_tpu_torch.config import RenderConfig
 from ray_tracing_tpu_torch.diff.inverse import SCENE_PARAM_FIELDS, fit
 from ray_tracing_tpu_torch.io.image import png_size
-from ray_tracing_tpu_torch.kernels import build
+from ray_tracing_tpu_torch.kernels import build, peak
 from ray_tracing_tpu_torch.kernels import megakernel as mk
 from ray_tracing_tpu_torch.ops.cubemap import checker_sky
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
-from ray_tracing_tpu_torch.render.camera import Camera
+from ray_tracing_tpu_torch.render.camera import Camera, rotate
 from ray_tracing_tpu_torch.render.integrator import render_image
 from ray_tracing_tpu_torch.scene.parser import parse_scene_string
 from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, Scene
+from ray_tracing_tpu_torch.utils import flops, gather_probe
+from ray_tracing_tpu_torch.utils.timing import device_seconds
 
 WIDTH, HEIGHT = 1920, 1080
 SMALL_W, SMALL_H = 256, 144
@@ -83,6 +89,25 @@ OVER_BUDGET_SPP = 100
 # version of the two that keep no index planes.
 BWD_COUNTER = {k: "megakernel_bwd_" + k for k in mk.BWD_KERNELS}
 RETRACE_PLAIN = {"replay": mk.run_bwd_replay_plain, "direct": mk.run_bwd_direct_plain}
+
+# K6 against its plain version: inputs just below 0.25, where x <- x*x + a
+# has an attracting fixed point, so values stay finite and the difference
+# between the kernel's fused multiply-add (one rounding) and PyTorch's
+# product then sum (two) stays small, yet the contraction (0.97-0.99 per
+# step near the fixed point) is slow enough that after 64 and 128 steps the
+# result still depends on the trip count and on every chain's start. Two
+# negative controls must fail the same tolerance: the plain recurrence at
+# the other trip count, and with every chain started at a (no 0.01*k
+# offsets). The bench's own inputs (a >= 0.25) run off to inf.
+PEAK_CHECK_A = (0.2498, 0.24999)
+PEAK_CHECK_ITERS = (64, 128)
+PEAK_RTOL = 1e-5
+# The shape and iterations measured_vpu_peak gives K6 on the bench path.
+PEAK_GRID, PEAK_ITERS = 512, 16384
+# A stale sky cache comes from the camera turned by this much (yaw, pitch).
+STALE_TURN = (400.0, 120.0)
+# The sparse sky lookup, which is off by default.
+SPARSE_SKY = RenderConfig(sky_sparse_gather=True)
 
 # Float operations (add, sub, mul, div, sqrt each count 1; comparisons,
 # selects and the integer work of the generator count 0), counted by hand
@@ -148,6 +173,8 @@ def _ptxas_report(log: str) -> dict:
             sym = m.group(1)
             if "fwd_kernel" in sym:
                 current = "fwd_b1" if "ILb1E" in sym else "fwd_b0"
+            elif "peak_fma_kernel" in sym or "gather_kernel" in sym:
+                current = "peak_fma" if "peak_fma" in sym else "gather_probe"
             else:
                 current = next((v for k, v in _WINNERS.items() if k in sym), sym)
             kernels[current] = {"symbol": sym}
@@ -161,9 +188,19 @@ def _ptxas_report(log: str) -> dict:
     return kernels
 
 
+def sass_counts(library_path: str, opcodes=("FFMA", "FMUL", "FADD")) -> dict:
+    """How many instructions of each opcode the library's SASS holds
+    (cuobjdump -sass, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library_path], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
 def phase_build() -> None:
-    """The three libraries, one nvcc each, started together."""
-    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY)
+    """The five libraries, one nvcc each, started together."""
+    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY,
+             peak.LIBRARY, gather_probe.LIBRARY)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(lambda n: build.build_library(n, verbose=True), names))
@@ -172,13 +209,21 @@ def phase_build() -> None:
     for info in infos:
         kernels.update(_ptxas_report(info["log"]))
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
-    # each winner source
-    if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay", "bwd_direct"}:
-        raise RuntimeError("expected five kernels in the ptxas logs:\n"
+    # each winner source; the FMA peak (K6) and the gather (P1)
+    if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay", "bwd_direct",
+                        "peak_fma", "gather_probe"}:
+        raise RuntimeError("expected seven kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
+    # K6 must be fused multiply-adds although every library is built with
+    # --fmad=false: the unrolled body alone holds 64 x 8 of them
+    kernels["peak_fma"]["sass"] = sass_counts(infos[names.index(peak.LIBRARY)]["path"])
+    if kernels["peak_fma"]["sass"]["FFMA"] < peak.UNROLL * peak.CHAINS:
+        raise RuntimeError(f"the FMA peak kernel's SASS: {kernels['peak_fma']['sass']}")
     mk._kernel_function()  # load the libraries just built
     for kernel in mk.BWD_KERNELS:
         mk._bwd_kernel_function(kernel)
+    peak._function()
+    gather_probe._function()
     emit("build", seconds=round(wall, 2),
          seconds_each={n: round(i["seconds"], 2) for n, i in zip(names, infos)},
          flags=" ".join(build.NVCC_FLAGS), kernels=kernels)
@@ -563,6 +608,201 @@ def phase_stream_identity(fetch_results, retrace_results) -> None:
     emit("stream_identity", frames=len(rows), all_bit_equal=True, results=rows)
 
 
+def phase_peak_and_gather_vs_plain(scenes, camera, sky) -> dict:
+    """K6 against its plain recurrence at the bench's shape, P1 against
+    torch.take bit for bit at the probe's shape and at the sky's (the main
+    path's texel indices into the 2048^2 cubemap), and their times."""
+    dev = camera.device
+    shape = (PEAK_GRID * 8, 128)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lo, hi = PEAK_CHECK_A
+    a = lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def rel_err(got, want):
+        return float(((got - want).abs() / want.abs()).max())
+
+    plain = {}
+    for iters in PEAK_CHECK_ITERS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain[iters] = peak.peak_fma_plain(a, iters)
+        torch.cuda.synchronize()
+        plain[iters, "ms"] = (time.perf_counter() - t0) * 1e3
+    peak_res = []
+    for iters in PEAK_CHECK_ITERS:
+        got, want = peak.peak_fma(a, iters), plain[iters]
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError(f"peak_fma at {iters} iterations is not finite")
+        # the negative controls: what a kernel with the other trip count, or
+        # without the chains' offsets, would have returned
+        x = a.clone()
+        for _ in range(iters):
+            x = x * x + a
+        no_offsets = x * peak.CHAINS
+        other = next(n for n in PEAK_CHECK_ITERS if n != iters)
+        res = {"iters": iters, "max_abs_err": float((got - want).abs().max()),
+               "max_rel_err": rel_err(got, want), "plain_ms": plain[iters, "ms"],
+               "ms": device_seconds(lambda i: peak.peak_fma(a, iters), 5) * 1e3,
+               "control_rel_err": {f"plain_at_{other}_iters": rel_err(got, plain[other]),
+                                   "plain_without_offsets": rel_err(got, no_offsets)}}
+        if res["max_rel_err"] > PEAK_RTOL:
+            raise RuntimeError(f"peak_fma disagrees with its plain version: {res}")
+        if min(res["control_rel_err"].values()) <= PEAK_RTOL:
+            raise RuntimeError(f"the K6 check cannot tell a wrong kernel from a right one: {res}")
+        peak_res.append(res)
+    # the kernel at the bench's shape and iterations, on the bench's inputs
+    rows = torch.arange(shape[0], dtype=torch.int32, device=dev).to(torch.float32)
+    base = (rows[:, None] * 1e-6 + 0.25).expand(shape).contiguous()
+    peak.peak_fma(base, PEAK_ITERS)
+    main_ms = device_seconds(lambda i: peak.peak_fma(base, PEAK_ITERS), 5) * 1e3
+
+    gather_res = []
+    table, idx = gather_probe.probe_inputs(dev)
+    cases = [("probe", table, idx)]
+    for name in ("scene_2", "room"):
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
+        planes, _ = mk.run_tiles(job, 17)
+        flat, _ = mk._miss_texel_index(sky, planes)
+        cases.append((name + "_sky", sky.packed, flat))
+    for name, tbl, ix in cases:
+        equal = bool(torch.equal(gather_probe.gather(tbl, ix), gather_probe.gather_plain(tbl, ix)))
+        if not equal:
+            raise RuntimeError(f"gather ({name}) differs from torch.take")
+        gather_res.append({"case": name, "table_entries": tbl.numel(),
+                           "indices": list(ix.shape), "bit_equal": equal})
+    emit("peak_and_gather_vs_plain",
+         peak={"criterion": "|kernel - plain| <= rtol * |plain|", "rtol": PEAK_RTOL,
+               "input": "uniform [%g, %g]" % PEAK_CHECK_A, "shape": list(shape),
+               "results": peak_res,
+               "ms_at_bench_shape": main_ms, "bench_iters": PEAK_ITERS},
+         gather={"criterion": "bit-equal to torch.take", "results": gather_res})
+    return {"peak": peak_res, "peak_ms": main_ms}
+
+
+def phase_bench_path(scenes, camera, sky) -> dict:
+    """The port's bench (python -m ray_tracing_tpu_torch.bench) at its full
+    size, its JSON line printed on a line of its own; every launch counter
+    set to 0 before it and read after it. Then the sky cache's exactness on
+    the bench's frame, with the sparse lookup off (the default) and on: 8
+    samples of scene_2 with the cache seeded by sample 0, with a threaded
+    cache and with a stale one from a turned camera, each equal bit for bit
+    to the frame of the plain render_image's sky lookup, which keeps no
+    cache."""
+    mk.reset_launch_counts()
+    peak.reset_launch_counts()
+    gather_probe.reset_launch_counts()
+    res = bench.run()
+    torch.cuda.synchronize()
+    print(json.dumps(res["line"]), flush=True)
+    counts = {**mk.launch_counts, **peak.launch_counts, **gather_probe.launch_counts}
+    for k in ("megakernel_fwd", "megakernel_fwd_record", "megakernel_bwd_fetch", "peak_fma"):
+        if counts[k] < 1:
+            raise RuntimeError(f"kernel {k} was not launched on the bench path")
+    vpu = res["fma_peak"]
+    if res["bwd_mode"] != "fetch" or not res["line"]["value"] > 0:
+        raise RuntimeError(f"bench: bwd_mode {res['bwd_mode']}, value {res['line']['value']}")
+    if not bench.PEAK_RATIO[0] <= vpu["ratio"] <= bench.PEAK_RATIO[1]:
+        raise RuntimeError(f"bench: the FMA peak's self-check ratio is {vpu['ratio']}")
+    if vpu["flops_per_s"] > 1.05 * PEAK_FLOPS:
+        raise RuntimeError(f"bench: an FMA peak of {vpu['flops_per_s']:.4g} FLOP/s is above "
+                           f"1.05 x the published {PEAK_FLOPS:.4g}: the timing is wrong")
+
+    scene = scenes["scene_2"]
+    turned = rotate(camera, *STALE_TURN, RenderConfig())
+    equal = {}
+    for lookup, cfg in (("full", RenderConfig()), ("sparse", SPARSE_SKY)):
+        # the uncached frame: the kernel's samples, each through compose's
+        # full lookup (render_frame keeping no sky cache)
+        job = mk.make_tile_job(scene, camera, WIDTH, HEIGHT, cfg)
+        dense, _ = mk.render_frame(job, mk.run_tiles_grad, 5, SPP, sky)
+        seeded, cache = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP,
+                                             config=cfg, cubemap=sky, return_sky_cache=True)
+        threaded = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP, config=cfg,
+                                        cubemap=sky, sky_cache=cache)
+        _, stale = mk.render_image_cuda(scene, turned, WIDTH, HEIGHT, 6, spp=2, config=cfg,
+                                        cubemap=sky, return_sky_cache=True)
+        with_stale = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP, config=cfg,
+                                          cubemap=sky, sky_cache=stale)
+        equal[lookup] = {"seeded": bool(seeded.equal(dense)),
+                         "threaded": bool(threaded.equal(dense)),
+                         "stale": bool(with_stale.equal(dense))}
+    if not all(all(e.values()) for e in equal.values()):
+        raise RuntimeError(f"the sky cache changed the frame: {equal}")
+    emit("bench_path", line=res["line"], bwd_mode=res["bwd_mode"],
+         seconds_per_sample=res["seconds_per_sample"],
+         census_flops_per_px=res["census_flops_per_px"], census_tflops=res["census_tflops"],
+         census_share_of_fma_peak=res["census_share_of_fma_peak"], fma_peak=vpu,
+         bf16_peak=res["bf16_peak"], fingerprint=res["fingerprint"], launches=counts,
+         cached_frames_equal_uncached=equal, spp=SPP)
+    return {"counts": counts, "fma_peak": vpu}
+
+
+def time_host(fn, n: int) -> float:
+    """Median milliseconds of fn(i) on the host's clock, each call up to the
+    end of its device work (for work that synchronises inside)."""
+    fn(-1)
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_sky_gather(scenes, camera, sky) -> dict:
+    """Module 8's question on the card. The gather probe (P1) through its own
+    entry point, launch counter set to 0 before and read after; then, at the
+    main path's shape, what a sample's sky lookup costs through the full
+    gather and through the sparse cache, the P1 kernel and PyTorch's
+    indexing on the real texel indices, and whole 8-spp frames with the
+    sparse path on and off (in the order on, off, off, on)."""
+    gather_probe.reset_launch_counts()
+    probe = gather_probe.run()
+    torch.cuda.synchronize()
+    print(gather_probe.report(probe), flush=True)
+    launches = dict(gather_probe.launch_counts)
+    if not probe["correct"] or launches["gather_probe"] < 1:
+        raise RuntimeError(f"gather probe: correct={probe['correct']}, launches {launches}")
+    # the plain version as written (its int64 cast included), for the kernels line
+    table, idx = gather_probe.probe_inputs(camera.device)
+    probe["plain_ms"] = device_seconds(lambda i: gather_probe.gather_plain(table, idx), 8) * 1e3
+
+    cfg = RenderConfig()
+    per_scene = {}
+    for name in ("scene_2", "room"):
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, cfg)
+        p0, _ = mk.run_tiles(job, 4)
+        p1, _ = mk.run_tiles(job, 5)
+        flat0, miss0 = mk._miss_texel_index(sky, p0)
+        flat1, miss1 = mk._miss_texel_index(sky, p1)
+        packed0 = mk.sparse_sky_lookup(sky, flat0, miss0)
+        fresh = miss1 & ~(miss0 & (flat1 == flat0))
+        blocks = fresh.reshape(-1, mk.SPARSE_BLOCK).any(dim=1)
+        r = {"miss_share": float(miss1.float().mean()),
+             "fresh_pixel_share": float(fresh.float().mean()),
+             "fresh_block_share": float(blocks.float().mean()),
+             "full_lookup_compose_ms": time_host(lambda i: mk.compose(p1, sky, cfg), 10),
+             "sparse_lookup_compose_ms": time_host(lambda i: mk.compose_sky(
+                 p1, mk.unpack_texels(mk.sparse_sky_lookup(sky, flat1, miss1, flat0, packed0,
+                                                           miss0))), 10),
+             "gather_kernel_ms": device_seconds(lambda i: gather_probe.gather(sky.packed, flat1),
+                                                8) * 1e3,
+             "torch_index_ms": device_seconds(lambda i: sky.packed[flat1], 8) * 1e3}
+        frames = {}
+        for sparse in (True, False, False, True):
+            frames.setdefault(sparse, []).append(time_frames(
+                scenes[name], camera, sky, SPARSE_SKY if sparse else cfg, 5))
+        r["frame_ms_sparse"] = frames[True]
+        r["frame_ms_full"] = frames[False]
+        per_scene[name] = r
+    emit("sky_gather", probe=probe, launches=launches, size=[WIDTH, HEIGHT], spp=SPP,
+         sky=[SKY_SIZE, SKY_SIZE], unit="ms (frame_ms_*: per 8-spp frame, two medians each)",
+         **per_scene)
+    return {"probe": probe, "launches": launches}
+
+
 def phase_main_path(scenes, camera, sky) -> dict:
     cfg = RenderConfig()
     mk.reset_launch_counts()
@@ -678,7 +918,7 @@ def frame_gradient_plain(scene, camera, sky, cfg, seed: int = 1, spp: int = SPP)
     h = HEIGHT // TRAIN_SLICES
     for k in range(TRAIN_SLICES):
         job = mk.make_tile_job(scene_l, cam_l, WIDTH, h, cfg, norm_height=HEIGHT)
-        img = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h)
+        img, _ = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h)
         img.sum().backward()  # adds into the leaves' gradients
     return {n: t.grad for n, t in leaves.items()}
 
@@ -1079,10 +1319,36 @@ def bound_bwd(scene: Scene, stats: dict, cfg: RenderConfig, retrace: bool = Fals
                                 * pixels * 4}
 
 
+def peak_bound() -> dict:
+    """Least time of one K6 launch on the bench path: per element 8 chain
+    starts, 8 x iters fused multiply-adds (2 operations each) and 7 adds at
+    the FP32 peak, against 4 bytes read and 4 written per element."""
+    elems = PEAK_GRID * 8 * 128
+    flops = elems * (peak.CHAINS + 2 * peak.CHAINS * PEAK_ITERS + peak.CHAINS - 1)
+    nbytes = 2 * 4 * elems
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  timing) -> None:
+                  timing, checks, bench_res, sky_res) -> None:
     cfg = RenderConfig()
     rows = []
+    # the census of the plain estimator (utils/flops.py, every lane of every
+    # bounce at the JAX census's prices) beside the hand counts of the bounds
+    # (the lanes this input needs): per pixel, forward (estimator and draws),
+    # the fetch VJP, and the replay kernel's recording pass plus its VJP
+    census = {}
+    for name in ("scene_2", "room"):
+        fwd = (flops.physics_cost_per_pixel(scenes[name], cfg)["flops_per_px"]
+               + flops.prng_flops_per_pixel(cfg, scenes[name].has_light))
+        census[name] = {
+            "fwd": fwd,
+            "fetch": flops.fetch_vjp_cost_per_pixel(scenes[name], cfg)["flops_per_px"],
+            "retrace": fwd + flops.replay_vjp_cost_per_pixel(scenes[name], cfg)["flops_per_px"]}
+    pixels = WIDTH * HEIGHT
     for kname, record, replaces in (
         ("megakernel_fwd", False,
          "ray_tracing_tpu/kernels/megakernel.py:1100 (_run_fwd, record=False; K1)"),
@@ -1100,6 +1366,8 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
                 "max_abs_err": cmp_["max_abs_err"],
                 "max_share_off": 1.0 - cmp_["share_within_atol"],
                 **b,
+                "hand_flops_per_px": b["flops"] / pixels,
+                "census_flops_per_px": census[name]["fwd"],
             }
         lead = per_scene["scene_2"]  # the main path's first workload
         rows.append({
@@ -1128,7 +1396,9 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
             "max_rel_err": cmp_["rows"]["max_rel_err"],
             "largest_gradient": cmp_["largest_gradient"],
             **bound_bwd(scenes[name], at_full[name]["stats"], cfg),
+            "census_flops_per_px": census[name]["fetch"],
         }
+        per_scene[name]["hand_flops_per_px"] = per_scene[name]["flops"] / pixels
     lead = per_scene["scene_2"]
     rows.append({
         "name": "megakernel_bwd_fetch", "route": "cuda",
@@ -1163,6 +1433,8 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
                 "plain_ms": timing[sc][f"bwd_{kernel}_small_plain_ms"],
                 "max_abs_err_vs_fetch_kernel": retrace_full[(sc, kernel)],
                 **b,
+                "hand_flops_per_px": b["flops"] / pixels,
+                "census_flops_per_px": census[sc]["retrace"],
             }
             if kernel == "direct":
                 # not the bound: the direct kernel traces every live bounce a
@@ -1188,6 +1460,36 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
             "library_ms": None,  # no single PyTorch call computes a path tracer's adjoint
             "shape": [WIDTH, HEIGHT], "scene": "scene_2", "per_scene": per_scene,
         })
+    b = peak_bound()
+    plain_at = checks["peak"][-1]  # the plain version runs 128 iterations, not the bench's
+    rows.append({
+        "name": "peak_fma", "route": "cuda",
+        "source": "ray_tracing_tpu_torch/kernels/csrc/peak_fma.cu",
+        "replaces": "ray_tracing_tpu/utils/flops.py:316 (measured_vpu_peak; _peak_kernel :256; K6)",
+        "launches": bench_res["counts"]["peak_fma"],
+        "max_abs_err": max(r["max_abs_err"] for r in checks["peak"]),
+        "max_rel_err": max(r["max_rel_err"] for r in checks["peak"]),
+        "ms": checks["peak_ms"], "plain_ms": plain_at["plain_ms"],
+        "plain_iters": plain_at["iters"], "ms_at_plain_iters": plain_at["ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "flops": b["flops"],
+        "library_ms": None,  # no PyTorch call computes an FMA chain in one launch
+        "shape": [PEAK_GRID * 8, 128], "iters": PEAK_ITERS,
+        "measured_fp32_flops_per_s": bench_res["fma_peak"]["flops_per_s"],
+    })
+    probe = sky_res["probe"]
+    rows.append({
+        "name": "gather_probe", "route": "cuda",
+        "source": "ray_tracing_tpu_torch/kernels/csrc/gather_probe.cu",
+        "replaces": "benchmarks/vmem_gather_probe.py:38 (run; kernel :31; P1)",
+        "launches": sky_res["launches"]["gather_probe"],
+        "max_abs_err": 0,  # integers, bit-equal to torch.take (phase peak_and_gather_vs_plain)
+        "ms": probe["kernel_ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": "bytes",
+        "library_ms": probe["library_ms"],  # table[idx] on the same int32 indices
+        "shape": [gather_probe.TABLE, gather_probe.N_IDX],
+        "ns_per_idx": probe["kernel_ns_per_idx"], "library_ns_per_idx": probe["library_ns_per_idx"],
+        "take_int64_ms": probe["take_int64_ms"],  # torch.take, which reads int64 indices
+    })
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1207,15 +1509,18 @@ def main() -> int:
     retrace = phase_bwd_modes_vs_plain(scenes, camera)
     retrace_full_results, retrace_full = phase_bwd_modes_full_size(scenes, camera)
     phase_stream_identity(bwd_results, retrace + retrace_full_results)
+    checks = phase_peak_and_gather_vs_plain(scenes, camera, sky)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
     train_counts, _ = phase_train_path(scenes, camera, sky)
+    bench_res = phase_bench_path(scenes, camera, sky)
+    sky_res = phase_sky_gather(scenes, camera, sky)
     timing = phase_timing(scenes, camera, sky)
     phase_large_scene(camera)
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  timing)
+                  timing, checks, bench_res, sky_res)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

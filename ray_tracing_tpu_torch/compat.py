@@ -6,8 +6,9 @@ package. ``packed_rows()`` of a Scene built by ``scene_from_numpy`` equals
 the JAX ``Scene.packed_rows()`` of the source bit for bit. Parameters and
 cotangents go the same way (``params_from_numpy``, ``cotangents_from_numpy``)
 and gradients come back as numpy arrays (``grads_to_numpy``), field by field
-or as the packed (N,16) / (16,) pair the kernels work on. As everywhere in
-the port, ``device=None`` means the card.
+or as the packed (N,16) / (16,) pair the kernels work on; a JAX sparse sky
+cache crosses with ``sky_cache_from_jax``. As everywhere in the port,
+``device=None`` means the card.
 """
 
 from __future__ import annotations
@@ -78,6 +79,28 @@ def cubemap_from_numpy(h: int, w: int, packed=None, r=None, g=None, b=None,
     if any(tuple(c.shape) != (6 * h * w,) for c in planes):
         raise ValueError(f"r, g, b must each hold {6 * h * w} texels")
     return CubemapData(None, *planes, h, w)
+
+
+def sky_cache_from_jax(flat, packed, miss, height: int | None = None,
+                       width: int | None = None, device=None):
+    """A JAX sparse sky cache (flat, packed, miss), given as numpy arrays, as
+    the port's (flat int32, packed int32, miss bool) tensors. The JAX
+    renderer's cache covers its padded planes: `height`/`width` cut it to
+    the frame, as the port's renderer keeps it. Packed texels are unsigned
+    0x00RRGGBB with the top byte zero, so they fit int32 unchanged."""
+    device = resolve_device(device)
+    flat, packed, miss = (np.asarray(a) for a in (flat, packed, miss))
+    if not flat.shape == packed.shape == miss.shape:
+        raise ValueError(f"cache planes differ in shape: {flat.shape}, {packed.shape}, {miss.shape}")
+    if packed.size and int(packed.max()) > 0x00FFFFFF:
+        raise ValueError("packed texels must be 0x00RRGGBB (top byte zero)")
+    if height is not None or width is not None:
+        flat, packed, miss = (a[:height, :width] for a in (flat, packed, miss))
+
+    def conv(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(device)
+
+    return conv(flat, np.int32), conv(packed, np.int32), conv(miss, np.bool_)
 
 
 def params_from_numpy(params: dict, device=None, requires_grad: bool = True) -> dict:

@@ -67,12 +67,21 @@ class RenderConfig:
     # gives the geometry a gradient across silhouettes. 0 = hard edges.
     soft_silhouette_temp: float = 0.0
 
-    # The fields below belong to machinery that later slices of the port
-    # bring over (the sparse sky cache, the progressive viewer). They are
-    # kept so that configurations stay interchangeable between the two
-    # packages.
-    sky_sparse_gather: bool = True
+    # The sparse sky lookup (kernels/megakernel.py::render_frame): on, a
+    # render of a packed cubemap with nearest texels gathers only the
+    # texels its sky cache lacks when it takes more than one sample or is
+    # handed a cache; the budget is the share of a frame's 128-pixel blocks
+    # that the larger compacted tier gathers (ops/cubemap.py::
+    # sparse_sky_lookup). Off by default, unlike the JAX package: choosing
+    # the tier reads a count on the host every sample, which stalls the
+    # launch queue, and on the H100 that costs more than the full gather it
+    # avoids (PERF.md, phase sky_gather of chip_smoke.py).
+    sky_sparse_gather: bool = False
     sky_sparse_budget_frac: float = 0.125
+
+    # Belongs to the progressive viewer, which a later slice of the port
+    # brings over; kept so that configurations stay interchangeable between
+    # the two packages.
     init_scale: int = 8
 
     def replace(self, **kw) -> "RenderConfig":

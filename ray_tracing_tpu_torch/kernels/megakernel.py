@@ -41,7 +41,7 @@ that file went:
     _make_core                    :1194-1232   TilesFunction
     _camera_pack                  :1240-1255   render/camera.py camera_pack
     render_tiles_pallas           :1258-1316   render_tiles_cuda
-    render_image_pallas           :1319-1492   render_image_cuda
+    render_image_pallas           :1319-1492   render_image_cuda, render_frame
 
 Order of the winner-index planes (record_layout), as in the JAX package: for
 each bounce one primary plane, then, when next-event estimation runs, one
@@ -83,7 +83,16 @@ import torch
 from ray_tracing_tpu_torch.config import RenderConfig, DEFAULT_CONFIG
 from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.kernels import build
-from ray_tracing_tpu_torch.ops.cubemap import CubemapData, constant_sky, sample_cubemap
+from ray_tracing_tpu_torch.ops.cubemap import (
+    SPARSE_BLOCK,
+    CubemapData,
+    constant_sky,
+    gather_texels,
+    sample_cubemap,
+    sparse_sky_lookup,
+    texel_flat_index,
+    unpack_texels,
+)
 from ray_tracing_tpu_torch.ops.intersect import (
     UNROLL_LIMIT,
     TraceRecord,
@@ -998,14 +1007,34 @@ def sample_seeds(seed: int, spp: int) -> list[int]:
     return [_wrap_i32(seed * 7919 + i) for i in range(spp)]
 
 
-def compose(planes, cubemap: CubemapData, config: RenderConfig) -> Vec3:
-    """Sky lookup on the miss directions, then clip(rgb + sky*throughput*
-    miss, 0, 1): one sample's final colour."""
-    r, g, b, sx, sy, sz, cr, cg, cb, miss = planes
-    sky = sample_cubemap(cubemap, Vec3(sx, sy, sz),
-                         bilinear=config.env_filter == "bilinear")
+def compose_sky(planes, sky: Vec3) -> Vec3:
+    """clip(rgb + sky*throughput*miss, 0, 1): one sample's final colour from
+    its ten planes and the sky radiance of its miss directions."""
+    r, g, b, _, _, _, cr, cg, cb, miss = planes
     rgb = Vec3(r, g, b) + sky * Vec3(cr, cg, cb) * miss
     return rgb.clip(0.0, 1.0)
+
+
+def compose(planes, cubemap: CubemapData, config: RenderConfig) -> Vec3:
+    """Sky lookup on the miss directions, then compose_sky."""
+    sky = sample_cubemap(cubemap, Vec3(planes[3], planes[4], planes[5]),
+                         bilinear=config.env_filter == "bilinear")
+    return compose_sky(planes, sky)
+
+
+def sky_cache_capable(config: RenderConfig, cubemap: CubemapData) -> bool:
+    """Whether a render can keep a sky cache: the nearest-texel lookup of a
+    packed cubemap larger than 1x1."""
+    return (config.env_filter == "nearest" and cubemap.packed is not None
+            and cubemap.h * cubemap.w > 1)
+
+
+def _miss_texel_index(cubemap: CubemapData, planes):
+    """(flat texel index of the miss direction, miss flag) of one sample's
+    planes; integers, outside autograd's graph."""
+    with torch.no_grad():
+        flat = texel_flat_index(cubemap, Vec3(planes[3], planes[4], planes[5]))
+        return flat, planes[9] > 0.5
 
 
 def _soft_silhouettes(job: TileJob, rgb: Vec3, cubemap: CubemapData, row0: int) -> Vec3:
@@ -1022,24 +1051,64 @@ def _soft_silhouettes(job: TileJob, rgb: Vec3, cubemap: CubemapData, row0: int) 
 
 
 def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
-                 cubemap: CubemapData, row0: int = 0):
-    """(H, W, 3) image: `spp` samples through `tiles_fn`, each composed with
-    its sky and clipped BEFORE the average. With soft_silhouette_temp > 0
-    the average is then blended with the soft primary visibility; the blend
-    is affine in the colour and the same for every sample, so blending the
-    average equals averaging the blended samples."""
+                 cubemap: CubemapData, row0: int = 0, sky_cached: bool = False,
+                 sky_cache=None):
+    """((H, W, 3) image, sky cache): `spp` samples through `tiles_fn`, each
+    composed with its sky and clipped BEFORE the average. With
+    soft_silhouette_temp > 0 the average is then blended with the soft
+    primary visibility; the blend is affine in the colour and the same for
+    every sample, so blending the average equals averaging the blended
+    samples.
+
+    `sky_cached` keeps a sky cache (flat, packed, miss) where
+    sky_cache_capable holds and spp > 1 or a cache is given, as the JAX
+    package's render_image_pallas does: sample 0's miss texels become the
+    cache, or a threaded `sky_cache` of an earlier call of the same frame
+    shape is taken as it is. With config.sky_sparse_gather off every sample
+    gathers its texels in full (no host read). With it on, sample 0 gathers
+    block-compacted and every other sample only the pixels whose texel index
+    differs from the cache's (sparse_sky_lookup: one host read per sample).
+    Either way the image is the full lookup's bit for bit: reuse is keyed on
+    equal texel indices. The cache returned is None where none was kept; a
+    threaded cache comes back as it was given."""
     if spp < 1:
         raise ValueError("spp must be at least 1")
-    total = None
-    for s in sample_seeds(seed, spp):
+    cfg = job.config
+    seeds = sample_seeds(seed, spp)
+    use_cache = (sky_cached and sky_cache_capable(cfg, cubemap)
+                 and (spp > 1 or sky_cache is not None))
+    sparse = use_cache and cfg.sky_sparse_gather
+    total, cache = None, None
+    if use_cache:
+        if sky_cache is None:
+            planes, _ = tiles_fn(job, seeds[0], row0)
+            flat0, miss0 = _miss_texel_index(cubemap, planes)
+        else:
+            flat0, packed0, miss0 = sky_cache
+            if tuple(flat0.shape) != (job.height, job.width):
+                raise ValueError(f"a sky cache of shape {tuple(flat0.shape)} for a "
+                                 f"{job.height}x{job.width} frame")
+        budget = max(int(flat0.numel() * cfg.sky_sparse_budget_frac) // SPARSE_BLOCK, 256)
+        if sky_cache is None:
+            packed0 = (sparse_sky_lookup(cubemap, flat0, miss0, budget=budget) if sparse
+                       else gather_texels(cubemap, flat0, miss0))
+            total = compose_sky(planes, unpack_texels(packed0))
+            seeds = seeds[1:]
+        cache = (flat0, packed0, miss0)
+    for s in seeds:
         planes, _ = tiles_fn(job, s, row0)
-        rgb = compose(planes, cubemap, job.config)
+        if sparse:
+            flat, miss = _miss_texel_index(cubemap, planes)
+            packed = sparse_sky_lookup(cubemap, flat, miss, flat0, packed0, miss0, budget)
+            rgb = compose_sky(planes, unpack_texels(packed))
+        else:
+            rgb = compose(planes, cubemap, cfg)
         total = rgb if total is None else total + rgb
     if spp > 1:
         total = total * (1.0 / spp)
-    if job.config.soft_silhouette_temp > 0:
+    if cfg.soft_silhouette_temp > 0:
         total = _soft_silhouettes(job, total, cubemap, row0)
-    return total.to_array()
+    return total.to_array(), cache
 
 
 def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
@@ -1047,7 +1116,8 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
                       config: RenderConfig = DEFAULT_CONFIG,
                       cubemap: CubemapData | None = None, row0: int = 0,
                       norm_height: int | None = None,
-                      aspect: float | None = None, device=None):
+                      aspect: float | None = None, sky_cache=None,
+                      return_sky_cache: bool = False, device=None):
     """Full render through the CUDA megakernel plus the sky lookup in
     PyTorch: (height, width, 3) float32 in [0, 1] on the device.
 
@@ -1056,8 +1126,19 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     `scene` or `camera` requires grad, backward() runs a backward kernel per
     sample (effective_bwd_mode says which mode, backward_kernel which
     kernel); in "fetch" each sample's forward is the recording kernel.
-    row0/norm_height/aspect as in render_tiles_cuda. device=None means the
-    card and raises without one; device="cpu" runs the plain versions."""
+    row0/norm_height/aspect as in render_tiles_cuda.
+
+    sky_cache / return_sky_cache thread the sky cache across calls
+    (render_frame): with return_sky_cache=True the result is (img, cache).
+    With config.sky_sparse_gather on, that cache fed to the next call of the
+    same frame shape makes every sample of it sparse; off (the default),
+    every sample gathers its texels in full and the cache is only passed
+    through. Exact for any cache state (a stale cache from another camera
+    only lowers the hit rate), but only valid for the cubemap it was
+    gathered from. cache is None where no cache can be kept (constant or
+    bilinear sky, float cubemap, one sample without a cache). device=None
+    means the card and raises without one; device="cpu" runs the plain
+    versions."""
     device = resolve_device(device)
     if cubemap is None:
         cubemap = constant_sky(device=device)
@@ -1066,4 +1147,6 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
         config = config.replace(bwd_mode=mode)
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
-    return render_frame(job, run_tiles_grad, seed, spp, cubemap.to(device), row0)
+    img, cache = render_frame(job, run_tiles_grad, seed, spp, cubemap.to(device), row0,
+                              sky_cached=True, sky_cache=sky_cache)
+    return (img, cache) if return_sky_cache else img

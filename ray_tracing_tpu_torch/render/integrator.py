@@ -54,7 +54,7 @@ def render_image(scene: Scene, camera: Camera, width: int, height: int,
         cubemap = constant_sky(device=device)
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
-    return render_frame(job, run_tiles_plain, seed, spp, cubemap.to(device), row0)
+    return render_frame(job, run_tiles_plain, seed, spp, cubemap.to(device), row0)[0]
 
 
 def _soft_slab_coverage(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, temp: float):

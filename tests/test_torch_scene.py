@@ -139,5 +139,8 @@ def test_config_fields_match_jax():
     from ray_tracing_tpu.config import RenderConfig as JCfg
     from ray_tracing_tpu_torch.config import DEFAULT_CONFIG, RenderConfig as TCfg
 
-    assert dataclasses.asdict(JCfg()) == dataclasses.asdict(TCfg())
+    # one default differs on purpose: the port's sparse sky lookup is opt-in
+    # (its tier choice reads a count on the host every sample)
+    assert dataclasses.asdict(JCfg()) == {**dataclasses.asdict(TCfg()), "sky_sparse_gather": True}
+    assert not TCfg().sky_sparse_gather
     assert TCfg().replace(bounces=3).bounces == 3 and DEFAULT_CONFIG == TCfg()
