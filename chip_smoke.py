@@ -14,12 +14,17 @@ direct mode, a 100-sample gradient past the fetch budget, which runs
 "replay", the invert app), the measurement path (the port's bench, whose JSON
 line it prints on a line of its own, and the gather probe with the sparse sky
 cache on and off) and times the kernels. Every phase prints one JSON line
-with the seconds it took (about two minutes in all on an H100, the kernels'
+with the seconds it took (about 90 s in all on an H100, the kernels'
 build included); any phase that fails raises and the run exits non-zero.
 Needs one CUDA device and nvcc; imports nothing of JAX. The last line of
 standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
+
+    python3 chip_smoke.py --times
+
+builds only the forward and backward libraries and prints one JSON line of
+K1-K5 times (kernel_times), for comparing versions of the kernels.
 """
 
 from __future__ import annotations
@@ -197,10 +202,9 @@ def sass_counts(library_path: str, opcodes=("FFMA", "FMUL", "FADD")) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
-def phase_build() -> None:
-    """The five libraries, one nvcc each, started together."""
-    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY,
-             peak.LIBRARY, gather_probe.LIBRARY)
+def build_libraries(names) -> tuple[list, dict, float]:
+    """One nvcc per library, started together: (build infos, ptxas report
+    per kernel, wall seconds)."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(lambda n: build.build_library(n, verbose=True), names))
@@ -208,6 +212,15 @@ def phase_build() -> None:
     kernels = {}
     for info in infos:
         kernels.update(_ptxas_report(info["log"]))
+    return infos, kernels, wall
+
+
+def phase_build() -> dict:
+    """The five libraries, one nvcc each, started together. Returns ptxas'
+    report per kernel."""
+    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY,
+             peak.LIBRARY, gather_probe.LIBRARY)
+    infos, kernels, wall = build_libraries(names)
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
     # each winner source; the FMA peak (K6) and the gather (P1)
     if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay", "bwd_direct",
@@ -227,6 +240,7 @@ def phase_build() -> None:
     emit("build", seconds=round(wall, 2),
          seconds_each={n: round(i["seconds"], 2) for n, i in zip(names, infos)},
          flags=" ".join(build.NVCC_FLAGS), kernels=kernels)
+    return kernels
 
 
 def make_scenes(device) -> dict[str, Scene]:
@@ -458,7 +472,8 @@ def phase_bwd_kernel_vs_plain(scenes, camera) -> tuple[list, dict]:
             cfg = RenderConfig(pixel_jitter=jitter)
             results.append({"scene": name, "jitter": jitter, "size": [SMALL_W, SMALL_H],
                             **compare_bwd(scene, camera, cfg, SMALL_W, SMALL_H, seed=21 + jitter)})
-    # more bounces than the kernel keeps entry states for (SAVED_BOUNCES = 16)
+    # more bounces than the kernel keeps entry states for (SAVED_BOUNCES = 10
+    # in csrc/rt_backward.cuh): the deeper ones are walked to again
     results.append({"scene": "room", "bounces": 20, "size": [SMALL_W, SMALL_H],
                     **compare_bwd(scenes["room"], camera, RenderConfig(bounces=20),
                                   SMALL_W, SMALL_H, seed=23)})
@@ -1108,9 +1123,12 @@ def time_frames(scene, camera, sky, cfg, n: int) -> float:
 def time_bwd(job, n: int, warmup: int = 3) -> tuple[float, float]:
     """Median milliseconds of one backward launch over n launches with
     distinct seeds, each on the index planes of its own forward: with random
-    cotangents, and with all-zero cotangents (every contribution is then
-    zero and no atomic add is made: what is left is the replay, the adjoint
-    and the shuffles)."""
+    cotangents, and with all-zero cotangents. The control does not isolate
+    the routing: with zero cotangents every value routed is zero, so no
+    shared or global atomic add is made and the shadow samples' routing is
+    skipped, but the walk, the sweep's evaluation, the adjoint and the
+    warp's reductions by key all run. The difference is the cost of the
+    adds themselves and of the shadow routing."""
     recs = [mk.run_tiles(job, s, record=True)[1] for s in range(n + warmup)]
     cot = random_cotangents(job)
     return tuple(
@@ -1142,9 +1160,28 @@ def time_fwd_bwd(scene, camera, sky, cfg, n: int) -> float:
     return statistics.median(times[1:])
 
 
-def phase_timing(scenes, camera, sky) -> dict:
-    cfg = RenderConfig()
+# ptxas' name of each megakernel -> its name in launch_info
+_LAUNCH_NAMES = {"fwd_b0": "fwd", "fwd_b1": "fwd_record", "bwd_fetch": "fetch",
+                 "bwd_replay": "replay", "bwd_direct": "direct"}
+
+
+def kernel_resources(ptxas: dict, scenes, camera) -> dict:
+    """Per megakernel: ptxas' registers, stack and spills, and per scene
+    what a launch at 1920x1080 takes (mk.launch_info: shared memory per
+    block, entry states kept, blocks and warps resident per SM)."""
     out = {}
+    for kname, launch in _LAUNCH_NAMES.items():
+        out[kname] = {k: ptxas[kname][k] for k in ("registers", "stack", "spill_stores",
+                                                   "spill_loads")}
+        for name in ("scene_2", "room"):
+            job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
+            out[kname][name] = mk.launch_info(launch, job)
+    return out
+
+
+def phase_timing(scenes, camera, sky, ptxas) -> dict:
+    cfg = RenderConfig()
+    out = {"resources": kernel_resources(ptxas, scenes, camera)}
     for name in ("scene_2", "room"):
         job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, cfg)
         out[name] = {
@@ -1224,10 +1261,12 @@ def bound(scene: Scene, stats: dict, record: bool, cfg: RenderConfig) -> dict:
     shadow-sampling: a closest-hit trace for every alive lane, shading for
     every active lane, a shadow ray for every accepted sample of an active
     lane. A dead lane needs nothing: it died on a miss, its ray is as it
-    was, so its next primary index is -1 again without arithmetic. The
-    recorded shadow indices, though, are the winners of rays that every
-    lane casts for every sample, accepted or not, so with `record` and a
-    light each of them is needed."""
+    was, so its next primary index is -1 again without arithmetic, and its
+    shadow indices are -1 by the index planes' dead-lane rule
+    (kernels/megakernel.py, record_layout). With `record` and a light the
+    recorded shadow indices of a live bounce are the winners of every
+    sample, accepted or not, so each active lane casts all `ns` of its
+    shadow rays."""
     n = scene.num_objects
     pixels = WIDTH * HEIGHT
     has_light = scene.has_light and cfg.shadow_samples > 0
@@ -1238,7 +1277,7 @@ def bound(scene: Scene, stats: dict, record: bool, cfg: RenderConfig) -> dict:
         alive, active = stats["alive"][b], stats["active"][b]
         flops += alive * f_trace + active * F_SHADE
         if has_light:
-            rays = ns * pixels if record else stats["shadow_rays"][b]
+            rays = ns * active if record else stats["shadow_rays"][b]
             flops += active * (F_LIGHT_BLEND + ns * F_ACCEPT)
             flops += rays * (F_SHADOW_RAY + f_shadow)
             flops += stats["shadow_rays"][b] * F_SHADOW_SUM
@@ -1332,6 +1371,17 @@ def peak_bound() -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def resource_fields(res: dict) -> dict:
+    """The kernels line's resource keys of one megakernel: registers and
+    stack per thread, and per scene shared memory per block and resident
+    warps per SM."""
+    return {"registers": res["registers"], "stack_bytes": res["stack"],
+            "spill_bytes": res["spill_stores"] + res["spill_loads"],
+            "smem_bytes_per_block": {n: res[n]["static_smem_bytes"] + res[n]["dynamic_smem_bytes"]
+                                     for n in ("scene_2", "room")},
+            "warps_per_sm": {n: res[n]["warps_per_sm"] for n in ("scene_2", "room")}}
+
+
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
                   timing, checks, bench_res, sky_res) -> None:
     cfg = RenderConfig()
@@ -1370,9 +1420,11 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
                 "census_flops_per_px": census[name]["fwd"],
             }
         lead = per_scene["scene_2"]  # the main path's first workload
+        res = timing["resources"]["fwd_b1" if record else "fwd_b0"]
         rows.append({
             "name": kname, "route": "cuda",
             "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_fwd.cu",
+            **resource_fields(res),
             "replaces": replaces,
             # the serving path for the forward, the training path for the
             # recording forward, whose planes the backward consumes
@@ -1402,6 +1454,7 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
     lead = per_scene["scene_2"]
     rows.append({
         "name": "megakernel_bwd_fetch", "route": "cuda",
+        **resource_fields(timing["resources"]["bwd_fetch"]),
         "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_bwd.cu",
         "replaces": "ray_tracing_tpu/kernels/megakernel.py:1140 (_run_bwd, fetch arm; "
                     "_bwd_kernel_fetch :916; K3)",
@@ -1445,6 +1498,7 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
         rows.append({
             "name": name, "route": "cuda",
             "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_bwd_retrace.cu",
+            **resource_fields(timing["resources"]["bwd_" + kernel]),
             "replaces": replaces,
             "launches": train_counts[name],
             "launches_by_path": {"serving": counts[name], "training": train_counts[name]},
@@ -1493,14 +1547,45 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
     print(json.dumps({"kernels": rows}), flush=True)
 
 
+def kernel_times() -> int:
+    """`python3 chip_smoke.py --times`: builds the forward and backward
+    libraries of the package first on the import path and prints one JSON
+    line: ptxas' report and the median times of K1-K5 (and K3, K4, K5 with
+    all-zero cotangents) at 1920x1080 on scene_2 and the room, default
+    physics, 20 launches each. Only functions that every version of the
+    package has are called, so that another checkout's kernels can be timed
+    with this script (run it from that checkout's root with `python3 -c`
+    and runpy, or with that package first on PYTHONPATH)."""
+    dev = phase_device()
+    _, ptxas, wall = build_libraries((mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY,
+                                      mk.RETRACE_KERNEL_LIBRARY))
+    device = torch.device("cuda", 0)
+    scenes = make_scenes(device)
+    camera = Camera.default(device)
+    out = {}
+    for name in ("scene_2", "room"):
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
+        out[name] = {"k1_ms": time_launches(lambda s: mk.run_tiles(job, s), 20),
+                     "k2_ms": time_launches(lambda s: mk.run_tiles(job, s, record=True), 20)}
+        out[name]["k3_ms"], out[name]["k3_zero_cotangents_ms"] = time_bwd(job, 20)
+        for kernel, key in (("replay", "k4"), ("direct", "k5")):
+            out[name][f"{key}_ms"], out[name][f"{key}_zero_cotangents_ms"] = \
+                time_retrace(job, kernel, 20)
+    print(json.dumps({"times": out, "package": os.path.dirname(mk.__file__), "device": dev,
+                      "build_seconds": round(wall, 2), "ptxas": ptxas}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--times"]:
+        return kernel_times()
     dev = phase_device()
     device = torch.device("cuda", 0)
-    phase_build()
+    ptxas = phase_build()
     scenes = make_scenes(device)
     camera = Camera.default(device)
     sky = checker_sky(SKY_SIZE, device=device)
@@ -1515,7 +1600,7 @@ def main() -> int:
     train_counts, _ = phase_train_path(scenes, camera, sky)
     bench_res = phase_bench_path(scenes, camera, sky)
     sky_res = phase_sky_gather(scenes, camera, sky)
-    timing = phase_timing(scenes, camera, sky)
+    timing = phase_timing(scenes, camera, sky, ptxas)
     phase_large_scene(camera)
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))

@@ -12,14 +12,19 @@
 // What bounds it on this card: bytes. A pixel needs the three radiance
 // cotangents when its path hits anything, the six sky cotangents when it
 // leaves the scene (the tenth plane is never read), one primary index per
-// bounce it is alive in and one shadow index per accepted sample; the kernel
-// loads exactly these, so a path that leaves at once costs 28 bytes, not the
-// 40 + 4*n_rec of its planes. It writes N*16+16 floats in all. Float work
-// (replay plus adjoint, a few hundred operations per live bounce) is far
-// below the card's rate. As it stands the kernel is limited by neither: by
-// the divergence between paths of different lengths, the integer work of the
-// generator, local-memory traffic of the saved states and contention on the
-// atomics. It is a first version that is right.
+// bounce it is alive in and one shadow index per accepted sample, so a path
+// that leaves at once needs 28 bytes, not the 40 + 4*n_rec of its planes.
+// It writes N*16+16 floats in all. Float work (replay plus adjoint, a few
+// hundred operations per live bounce) is far below the card's rate. What
+// limits it is latency and instruction throughput: every live bounce is
+// evaluated twice (the walk and its sweep step), with the generator's
+// integer work, and the paths of a warp differ in length. The design keeps the rest small: the
+// walk loads a bounce's shadow entries together with its primary entry
+// (their latencies overlap; a warp reads the same 128-byte rows for its
+// accepted samples anyway), the sweep step reads the walk's masks of
+// samples instead of the planes and routes from its own evaluation, the
+// entry states live in shared memory (no local memory), and the routing
+// reduces by key inside the warp before it touches shared memory.
 
 #include "rt_device.cuh"
 #include "rt_backward.cuh"
@@ -29,21 +34,45 @@ using namespace rt;
 namespace {
 
 // The winner of trace call `index` is the forward's index plane `index`.
+// In the walk, with up to PREFETCH shadow samples, a bounce's shadow
+// entries are loaded together with its primary entry, rejected samples'
+// included, so that their latencies overlap; the sweep reads the walk's
+// masks and asks for a shadow entry only in a full shadow scan.
+constexpr int PREFETCH = 4;
+
 struct FetchWinners {
-    const int* rec;
-    size_t plane, pix;
+    const int* at;  // this pixel's entry of the first plane
+    size_t plane;
+    int pre[PREFETCH];
+    bool sweeping;
 
-    __device__ FetchWinners(const int* r, size_t pl, size_t px) : rec(r), plane(pl), pix(px) {}
+    __device__ FetchWinners(const int* r, size_t pl, size_t px)
+        : at(r + px), plane(pl), sweeping(false) {}
 
-    __device__ __forceinline__ void begin_sweep() {}
+    __device__ __forceinline__ void begin_sweep() { sweeping = true; }
 
-    __device__ __forceinline__ int primary(const float*, const Params& p, int b, V3, V3) const {
-        return rec[(size_t)(b * (1 + p.ns)) * plane + pix];
+    __device__ __forceinline__ int primary(const float*, const Params& p, int b, V3, V3) {
+        const int* r = at + (size_t)(b * (1 + p.ns)) * plane;
+        if (!sweeping && p.ns <= PREFETCH) {
+#pragma unroll
+            for (int k = 0; k < PREFETCH; ++k) pre[k] = k < p.ns ? r[(size_t)(1 + k) * plane] : -1;
+        }
+        return r[0];
     }
 
     __device__ __forceinline__ int shadow(const float*, const Params& p, int b, int s, V3,
                                           V3) const {
-        return rec[(size_t)(b * (1 + p.ns) + 1 + s) * plane + pix];
+        if (!sweeping && p.ns <= PREFETCH) {
+            return s == 0 ? pre[0] : (s == 1 ? pre[1] : (s == 2 ? pre[2] : pre[3]));
+        }
+        return at[(size_t)(b * (1 + p.ns) + 1 + s) * plane];
+    }
+
+    // the plane again: no ray is needed
+    template <class RayFn>
+    __device__ __forceinline__ int shadow_again(const float*, const Params& p, int b, int s,
+                                                RayFn) const {
+        return at[(size_t)(b * (1 + p.ns) + 1 + s) * plane];
     }
 };
 
@@ -61,6 +90,12 @@ extern "C" int rt_megakernel_bwd(const float* scene, const float* cam, const flo
                                  RT_PARAM_ARGS, void* stream) {
     RT_FILL_PARAMS(p);
     return launch_bwd<FetchWinners>(scene, cam, cot, rec, g_scene, g_cam, primal, p, stream);
+}
+
+// The launch's shape at this scene size and depth (rt_backward.cuh,
+// bwd_info): info receives 7 ints. Returns a cudaError_t (0 = success).
+extern "C" int rt_megakernel_bwd_info(int n_objects, int bounces, int ns, int* info) {
+    return bwd_info<FetchWinners>(n_objects, bounces, ns, info);
 }
 
 // Text of a cudaError_t, for the wrapper's exception.

@@ -22,16 +22,19 @@
 //     the last saved entry state, is traced again. This is what the JAX
 //     package's RecordingTracer + ReplayTracer compute: the winner's
 //     parameters, re-read from the table by index, are the record's planes.
-//   TracedWinners (K5): nothing is kept; every evaluation of a bounce, in
-//     phase A and again in the sweep, runs the trace loops again.
+//   TracedWinners (K5): nothing is kept; the walk traces every call and
+//     the sweep's evaluation traces the bounce's primary ray again. Its
+//     shadow samples come from the walk's masks (rt_backward.cuh), so with a
+//     single emitter no shadow ray is traced again; a full shadow scan
+//     traces the samples taken again, for their targets.
 //
 // What bounds them on this card: float operations on a lit, enclosed scene,
 // where every live bounce traces its ray and its shadow rays against all N
-// objects (K5 twice, and its shadow rays a third time for the routing);
-// bytes (the cotangents a pixel needs, 28 B for a path that leaves at once)
-// where most paths leave the scene at once. Neither reads index planes. As
-// they stand both are limited by what limits K1 and K3 (divergence, the
-// generator, local memory, atomics), not by either bound.
+// objects (K5 its primary rays twice); bytes (the cotangents a pixel needs,
+// 28 B for a path that leaves at once) where most paths leave the scene at
+// once. Neither reads index planes. As they stand both are limited by what
+// limits K3 (latency, divergence, the generator; K4's kept winners are local
+// memory), not by either bound.
 
 #include "rt_device.cuh"
 #include "rt_backward.cuh"
@@ -75,6 +78,15 @@ struct RecordedWinners {
         if (!sweeping && call < SAVED_WINNERS) kept[call] = w;
         return w;
     }
+
+    template <class RayFn>
+    __device__ __forceinline__ int shadow_again(const float* rows, const Params& p, int b, int s,
+                                                RayFn ray) {
+        const int call = shadow_call(p, b, s);
+        if (call < SAVED_WINNERS) return kept[call];
+        const ShadowRay r = ray();
+        return shadow_winner(rows, p, r.ro, r.dir);
+    }
 };
 
 // K5: traced wherever asked.
@@ -91,6 +103,13 @@ struct TracedWinners {
     __device__ __forceinline__ int shadow(const float* rows, const Params& p, int, int, V3 ro,
                                           V3 rd) const {
         return shadow_winner(rows, p, ro, rd);
+    }
+
+    template <class RayFn>
+    __device__ __forceinline__ int shadow_again(const float* rows, const Params& p, int, int,
+                                                RayFn ray) const {
+        const ShadowRay r = ray();
+        return shadow_winner(rows, p, r.ro, r.dir);
     }
 };
 
@@ -114,6 +133,16 @@ extern "C" int rt_megakernel_bwd_direct(const float* scene, const float* cam, co
                                         float* primal, RT_PARAM_ARGS, void* stream) {
     RT_FILL_PARAMS(p);
     return launch_bwd<TracedWinners>(scene, cam, cot, rec, g_scene, g_cam, primal, p, stream);
+}
+
+// The launch shapes of the two kernels (rt_backward.cuh, bwd_info): info
+// receives 7 ints. Return a cudaError_t (0 = success).
+extern "C" int rt_megakernel_bwd_replay_info(int n_objects, int bounces, int ns, int* info) {
+    return bwd_info<RecordedWinners>(n_objects, bounces, ns, info);
+}
+
+extern "C" int rt_megakernel_bwd_direct_info(int n_objects, int bounces, int ns, int* info) {
+    return bwd_info<TracedWinners>(n_objects, bounces, ns, info);
 }
 
 // Text of a cudaError_t, for the wrapper's exception.

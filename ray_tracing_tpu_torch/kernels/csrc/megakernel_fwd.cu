@@ -34,10 +34,16 @@
 //     the same time, which shared memory serves as a broadcast;
 //   * the object kind is read from column 15 at run time, so one binary
 //     serves every scene, and every RenderConfig scalar is an argument;
-//   * the loop over bounces ends when the path is dead (unless RECORD, which
-//     keeps the plain version's masked lanes so the index planes agree);
-//     that is safe because random numbers are keyed by slot (Philox4x32-10,
-//     counter = global pixel and slot group), not consumed from a stream;
+//   * the loop over bounces ends when the path is dead; that is safe because
+//     random numbers are keyed by slot (Philox4x32-10, counter = global
+//     pixel and slot group), not consumed from a stream. With RECORD the
+//     index planes follow the dead-lane rule (kernels/megakernel.py,
+//     record_layout): the bounce where the path misses stores -1 for its
+//     shadow samples without tracing them, and a dead path stores -1 in
+//     every entry of the bounces left before it leaves the loop (a warp is
+//     one row of 32 pixels, so these stores are coalesced). A live bounce
+//     traces every shadow sample when recording, rejected ones included:
+//     its entries stay those of the plain recorder;
 //   * the state of a path lives in registers for the whole loop: nothing
 //     but the final planes ever reaches device memory.
 //
@@ -122,7 +128,14 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     const int rec_per_bounce = 1 + p.ns;
 
     for (int b = 0; b < p.bounces; ++b) {
-        if (!RECORD && !alive) break;
+        if (!alive) {
+            if (RECORD) {
+                for (int k = b * rec_per_bounce; k < p.bounces * rec_per_bounce; ++k) {
+                    rec[(size_t)k * plane + pix] = -1;
+                }
+            }
+            break;
+        }
         const int base = 2 + b * per_bounce;
 
         V3 d = normalize(rd);
@@ -146,7 +159,7 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
                 V3 rand_dir = draws.direction(base + 3 * s, cube_biased);
                 bool accept = dot(rand_dir, h.normal) > 0.0f;
                 int winner = -1;
-                if (RECORD || (active && accept)) {
+                if (active && (RECORD || accept)) {
                     V3 sample_ro, sample_dir;
                     shadow_ray(p, h.point, to_light, rand_dir, sample_ro, sample_dir);
                     winner = shadow_winner(rows, p, sample_ro, sample_dir);
@@ -246,6 +259,32 @@ extern "C" int rt_megakernel_fwd(const float* scene, const float* cam, float* pl
         fwd_kernel<false><<<grid, block, smem, s>>>(scene, cam, planes, rec, p);
     }
     return (int)cudaGetLastError();
+}
+
+// What a launch of the forward kernel (record != 0: the recording one)
+// takes at this scene size: info[0] registers per thread, [1] local memory
+// (stack) bytes per thread, [2] static and [3] dynamic shared memory bytes
+// per block, [4] 0 (no entry states), [5] blocks resident per SM, [6]
+// threads per block. Returns a cudaError_t (0 = success).
+extern "C" int rt_megakernel_fwd_info(int n_objects, int record, int* info) {
+    const size_t smem = (size_t)n_objects * SCENE_COLS * sizeof(float);
+    const void* fn = record ? (const void*)fwd_kernel<true> : (const void*)fwd_kernel<false>;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, BLOCK_W * BLOCK_H, smem);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = attr.numRegs;
+    info[1] = (int)attr.localSizeBytes;
+    info[2] = (int)attr.sharedSizeBytes;
+    info[3] = (int)smem;
+    info[4] = 0;
+    info[5] = blocks;
+    info[6] = BLOCK_W * BLOCK_H;
+    return 0;
 }
 
 // Text of a cudaError_t, for the wrapper's exception.

@@ -12,12 +12,14 @@
 //                                              wherever the adjoint asks
 //
 // A Winners type has a constructor (const int* rec, size_t plane, size_t pix)
-// and three device methods: primary(rows, p, b, ro, rd), the winner of bounce
+// and four device methods: primary(rows, p, b, ro, rd), the winner of bounce
 // b's closest-hit ray (ro, rd as the forward traces them); shadow(rows, p, b,
 // s, ro, rd), the winner of bounce b's shadow sample s, whose ray is (ro, rd);
-// begin_sweep(), called once between the two phases below. Trace calls are
-// numbered in the forward's order: b*(1+ns) for bounce b's primary ray,
-// b*(1+ns)+1+s for its shadow sample s.
+// shadow_again(rows, p, b, s, ray), the same winner asked for a second time
+// by the routing of a full shadow scan, where `ray()` builds the sample's
+// ray for a source that has to trace it; begin_sweep(), called once between
+// the two phases below. Trace calls are numbered in the forward's order:
+// b*(1+ns) for bounce b's primary ray, b*(1+ns)+1+s for its shadow sample s.
 //
 // What it computes: the vector-Jacobian product of the per-pixel estimator
 // of megakernel_fwd.cu. Inputs are the scene table (N,16), the camera pack
@@ -41,15 +43,26 @@
 //      from (seed, pixel, slot). With the same operations in the same order
 //      and no FMA contraction the walk arrives at the forward's values bit
 //      for bit, so it takes the forward's decisions. The state at the entry
-//      of each bounce (origin, direction, throughput: 9 floats) is kept in a
-//      per-thread array of SAVED_BOUNCES entries; a deeper bounce is
-//      recomputed from the last entry kept, so every `bounces` works.
+//      of each bounce (origin, direction, throughput: 9 floats) and the
+//      bounce's two masks of shadow samples (accepted; accepted and hit) in
+//      a tenth word are kept in dynamic shared memory, laid out
+//      [bounce][word][thread] so that the 32 lanes of a warp touch 32
+//      consecutive words (no bank conflict, nothing in local memory). The
+//      launch keeps up to SAVED_BOUNCES of them, as many as fit beside the
+//      scene and gradient tables; a deeper bounce is recomputed from the
+//      last entry kept, so every `bounces` works.
 //   B. Reverse sweep over the bounces the path was alive in, last to first,
-//      carrying the adjoints of origin, direction and throughput. A path
-//      that left the scene starts from the cotangents of the sky direction
-//      and sky throughput planes; every addition to the radiance takes the
-//      cotangent of the radiance planes. A dead lane contributes exactly
-//      nothing: the walk stops where the path died.
+//      carrying the adjoints of origin, direction and throughput. Each step
+//      evaluates its bounce once, from its entry state and the walk's
+//      masks: the shadow samples need no draw, no ray and, with a single
+//      emitter, no winner (a full shadow scan asks `Winners` again for the
+//      samples taken), so the step draws only the bounce direction and the
+//      branch. The adjoint and the routing of the shadow samples both read
+//      that evaluation. A path that left the scene starts from the
+//      cotangents of the sky direction and sky throughput planes; every
+//      addition to the radiance takes the cotangent of the radiance planes.
+//      A dead lane contributes exactly nothing: the walk stops where the
+//      path died.
 //
 // Routing is part of the kernel: each bounce yields 15 gradient entries for
 // the row of the object hit (column 15, the type tag, has none) and 3 for the
@@ -57,11 +70,12 @@
 // They are summed in shared memory (a second (N,16) table beside the scene
 // table, and 16 floats for the camera), then each block adds its non-zero
 // entries to the outputs with one pass of global atomics. In front of the
-// shared atomics a warp whose contributing lanes all hit the same object (the
-// usual case: neighbouring pixels) reduces with shuffles and adds once. The
-// outputs must be zero at launch. Float atomics add in an order that changes
-// from run to run: the gradients are NOT bit-reproducible, only equal within
-// rounding of a sum of that many terms.
+// shared atomics each warp reduces by key: __match_any_sync groups the lanes
+// that hit the same object, a shuffle tree sums every group at once, and the
+// lowest lane of each group adds its sums once. The outputs must be zero at
+// launch. Float atomics add in an order that changes from run to run: the
+// gradients are NOT bit-reproducible, only equal within rounding of a sum of
+// that many terms.
 //
 // The sphere adjoint divides by the root of the discriminant. That root is
 // never 0 here: the forward counts a sphere as hit only when its discriminant
@@ -75,12 +89,56 @@
 
 namespace rt {
 
-constexpr int SAVED_BOUNCES = 16;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int THREADS = BLOCK_W * BLOCK_H;
+// One bit per shadow sample in Bounce::taken.
+constexpr int MAX_SHADOW_SAMPLES = 32;
 static_assert(BLOCK_W == 32, "a warp is one row of the block: lane == threadIdx.x");
 
 struct PathState {
     V3 ro, rd, contrib;
+};
+
+// The entry states in shared memory: [bounce][word][thread], nine floats
+// and the masks of the bounce's shadow samples (accepted in the low 16
+// bits, accepted and hit in the high 16: the sweep reads them while ns <=
+// KNOWN_SAMPLES and evaluates the samples again above). At most
+// SAVED_BOUNCES of them: 100 KB for a block of 256 threads, so that two
+// blocks stay resident on an SM; at 1024 objects the tables leave room for
+// 9. A deeper bounce is walked to from the last one.
+constexpr int STATE_FLOATS = 10;
+constexpr int KNOWN_SAMPLES = 16;
+constexpr int SAVED_BOUNCES = 10;
+
+__device__ __forceinline__ void save_state(float* saved, int b, int tid, const PathState& st,
+                                           unsigned masks) {
+    float* d = saved + (size_t)b * STATE_FLOATS * THREADS + tid;
+    d[0 * THREADS] = st.ro.x;
+    d[1 * THREADS] = st.ro.y;
+    d[2 * THREADS] = st.ro.z;
+    d[3 * THREADS] = st.rd.x;
+    d[4 * THREADS] = st.rd.y;
+    d[5 * THREADS] = st.rd.z;
+    d[6 * THREADS] = st.contrib.x;
+    d[7 * THREADS] = st.contrib.y;
+    d[8 * THREADS] = st.contrib.z;
+    d[9 * THREADS] = __uint_as_float(masks);
+}
+
+__device__ __forceinline__ PathState load_state(const float* saved, int b, int tid,
+                                                unsigned& masks) {
+    const float* d = saved + (size_t)b * STATE_FLOATS * THREADS + tid;
+    masks = __float_as_uint(d[9 * THREADS]);
+    PathState st;
+    st.ro = v3(d[0 * THREADS], d[1 * THREADS], d[2 * THREADS]);
+    st.rd = v3(d[3 * THREADS], d[4 * THREADS], d[5 * THREADS]);
+    st.contrib = v3(d[6 * THREADS], d[7 * THREADS], d[8 * THREADS]);
+    return st;
+}
+
+// The ray of one shadow sample, for a Winners source that traces it again.
+struct ShadowRay {
+    V3 ro, dir;
 };
 
 // Everything one live bounce computes from its entry state, kept for the
@@ -99,6 +157,8 @@ struct Bounce {
     V3 contrib_new;      // throughput after the branch, before the light blend
     V3 sampled_light;
     float inv_num;       // 1 / max(accepted shadow samples, 1)
+    unsigned accepted;   // bit s: shadow sample s was accepted
+    unsigned taken;      // bit s: shadow sample s was accepted and hit an object
     bool specular, light_on;
 };
 
@@ -122,12 +182,31 @@ __device__ __forceinline__ V3 normalize_adj(V3 v, V3 g) {
     return (g - u * dot(u, g)) * inv;
 }
 
+// The winner of shadow sample s of bounce b (hit point e.point), asked of
+// `win` a second time: the target of a full shadow scan's sample taken. The
+// sample's ray is built only for a source that traces it again.
+template <class Winners>
+__device__ __forceinline__ int taken_target(const float* rows, Winners& win, const Params& p,
+                                            Draws& draws, const Bounce& e, V3 to_light, int b,
+                                            int s) {
+    const int base = 2 + b * (3 * p.ns + 4);
+    return win.shadow_again(rows, p, b, s, [&]() {
+        ShadowRay r;
+        shadow_ray(p, e.point, to_light, draws.direction(base + 3 * s, p.cube_biased != 0), r.ro,
+                   r.dir);
+        return r;
+    });
+}
+
 // Bounce b from its entry state: the forward kernel's operations in the
-// forward kernel's order, the winners from `win`.
+// forward kernel's order, the winners from `win`. With `known` the caller
+// has set e.accepted and e.taken from the walk: the shadow samples are then
+// summed from the masks, in the same order, with no draw and no ray.
 template <class Winners>
 __device__ __forceinline__ void eval_bounce(const float* rows, Winners& win, const Params& p,
                                             V3 light_origin, V3 light_emission, Draws& draws,
-                                            const PathState& st, int b, Bounce& e) {
+                                            const PathState& st, int b, Bounce& e,
+                                            bool known) {
     const int base = 2 + b * (3 * p.ns + 4);
     const bool cube_biased = p.cube_biased != 0;
 
@@ -152,18 +231,43 @@ __device__ __forceinline__ void eval_bounce(const float* rows, Winners& win, con
     // next-event estimation: a sample counts when its direction is accepted
     e.sampled_light = v3(0.0f, 0.0f, 0.0f);
     e.inv_num = 1.0f;
-    if (p.light_index >= 0) {
+    if (!known) {
+        e.accepted = 0u;
+        e.taken = 0u;
+    }
+    if (p.light_index >= 0 && known) {
+        // the walk's masks: the same additions in the same order
+        V3 to_light = light_origin - e.point;
+        V3 sum = v3(0.0f, 0.0f, 0.0f);
+        float num = 0.0f;
+        for (int s = 0; s < p.ns; ++s) {
+            if (!((e.accepted >> s) & 1u)) continue;
+            num += 1.0f;
+            if (!((e.taken >> s) & 1u)) continue;
+            V3 em = light_emission;
+            if (p.single_emissive < 0) {
+                const int w = taken_target(rows, win, p, draws, e, to_light, b, s);
+                em = v3(rows[w * SCENE_COLS + 12], rows[w * SCENE_COLS + 13],
+                        rows[w * SCENE_COLS + 14]);
+            }
+            sum = sum + em;
+        }
+        e.inv_num = 1.0f / (num > 1.0f ? num : 1.0f);
+        e.sampled_light = sum * e.inv_num;
+    } else if (p.light_index >= 0) {
         V3 to_light = light_origin - e.point;
         V3 sum = v3(0.0f, 0.0f, 0.0f);
         float num = 0.0f;
         for (int s = 0; s < p.ns; ++s) {
             V3 rand_dir = draws.direction(base + 3 * s, cube_biased);
             if (dot(rand_dir, e.normal) > 0.0f) {
+                e.accepted |= 1u << s;
                 num += 1.0f;
                 V3 sro, sdir;
                 shadow_ray(p, e.point, to_light, rand_dir, sro, sdir);
                 int w = win.shadow(rows, p, b, s, sro, sdir);
                 if (w >= 0) {
+                    e.taken |= 1u << s;
                     V3 em = p.single_emissive >= 0
                                 ? light_emission
                                 : v3(rows[w * SCENE_COLS + 12], rows[w * SCENE_COLS + 13],
@@ -339,28 +443,43 @@ __device__ __forceinline__ void bounce_adjoint(const float* rows, const Params& 
     a.contrib = a_contrib;
 }
 
-// Adds vals[0..COUNT) to table[key*16 + first_col ...] in shared memory for
-// every lane whose key is >= 0. Every lane of the warp must call it. When
-// all contributing lanes share one key, the warp reduces with shuffles and
-// one lane adds; otherwise each lane adds for itself.
+// Sums vals[0..COUNT) over the lanes of the warp that share a key: after
+// the call the lowest lane of each group of equal keys holds its group's
+// sums in `vals` (the other lanes hold partial sums). Every lane of the warp
+// must call it; returns whether this lane is its group's lowest. One shuffle
+// tree serves every group at once: in round k each remaining lane adds the
+// values of the next remaining lane of its group above it, then the lanes
+// at odd rank (counted in that round) drop out; ceil(log2(largest group))
+// rounds.
 template <int COUNT>
-__device__ __forceinline__ void route(float* table, int key, const float* vals, int first_col) {
-    const unsigned contributing = __ballot_sync(FULL_MASK, key >= 0);
-    if (contributing == 0u) return;
-    const unsigned same = __match_any_sync(FULL_MASK, key);
-    const bool one_key = __all_sync(FULL_MASK, key < 0 || same == contributing);
-    if (one_key) {
-        const int leader = __ffs(contributing) - 1;
+__device__ __forceinline__ bool reduce_by_key(int key, float* vals) {
+    const unsigned lane = threadIdx.x;
+    const unsigned below = (1u << lane) - 1u;
+    unsigned peers = __match_any_sync(FULL_MASK, key);
+    const bool lowest = (peers & below) == 0u;
+    unsigned rank = __popc(peers & below);
+    peers &= ~((2u << lane) - 1u);  // the lanes of the group above this one
+    while (__any_sync(FULL_MASK, peers != 0u)) {
+        const int next = __ffs(peers);  // 1 + the next lane up, 0: none
 #pragma unroll
         for (int c = 0; c < COUNT; ++c) {
-            float v = key >= 0 ? vals[c] : 0.0f;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
-            if ((int)threadIdx.x == leader && v != 0.0f) {
-                atomicAdd(&table[key * SCENE_COLS + first_col + c], v);
-            }
+            const float t = __shfl_sync(FULL_MASK, vals[c], (next - 1) & 31);
+            if (next != 0) vals[c] += t;
         }
-    } else if (key >= 0) {
+        peers &= ~__ballot_sync(FULL_MASK, (rank & 1u) != 0u);
+        rank >>= 1;
+    }
+    return lowest;
+}
+
+// Adds vals[0..COUNT) to table[key*16 + first_col ...] in shared memory for
+// every lane whose key is >= 0: reduced by key inside the warp first, so
+// each distinct key of the warp makes one add per non-zero column. Every
+// lane of the warp must call it; `vals` is overwritten.
+template <int COUNT>
+__device__ __forceinline__ void route(float* table, int key, float* vals, int first_col) {
+    if (__ballot_sync(FULL_MASK, key >= 0) == 0u) return;
+    if (reduce_by_key<COUNT>(key, vals) && key >= 0) {
 #pragma unroll
         for (int c = 0; c < COUNT; ++c) {
             if (vals[c] != 0.0f) atomicAdd(&table[key * SCENE_COLS + first_col + c], vals[c]);
@@ -370,22 +489,24 @@ __device__ __forceinline__ void route(float* table, int key, const float* vals, 
 
 // `rec`: the index planes (read by FetchWinners only). `primal`, when not
 // null, receives the ten planes the forward walk arrives at, to be held
-// against the forward kernel's (a check, not used by training).
+// against the forward kernel's (a check, not used by training). `n_saved`:
+// entry states kept in shared memory (launch_bwd sizes it).
 template <class Winners>
-__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
+__global__ void __launch_bounds__(THREADS)
 bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
            const float* __restrict__ cot, const int* __restrict__ rec,
            float* __restrict__ g_scene, float* __restrict__ g_cam,
-           float* __restrict__ primal, Params p) {
+           float* __restrict__ primal, Params p, int n_saved) {
     extern __shared__ float s_mem[];
     __shared__ float s_cam[16];
     __shared__ float s_gcam[16];
     const int table = p.n_objects * SCENE_COLS;
     float* s_rows = s_mem;
     float* s_grad = s_mem + table;
+    float* s_saved = s_mem + 2 * table;
 
     const int tid = threadIdx.y * BLOCK_W + threadIdx.x;
-    for (int i = tid; i < table; i += BLOCK_W * BLOCK_H) {
+    for (int i = tid; i < table; i += THREADS) {
         s_rows[i] = scene[i];
         s_grad[i] = 0.0f;
     }
@@ -441,19 +562,18 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     }
 
     // ---- phase A: forward walk ---------------------------------------------
-    PathState saved[SAVED_BOUNCES];
     Bounce e;
     V3 result = v3(0.0f, 0.0f, 0.0f);
     int n_live = 0;       // bounces the path was alive in and hit something
     bool missed = false;  // the path left the scene at bounce n_live
     if (inside) {
         for (int b = 0; b < p.bounces; ++b) {
-            eval_bounce(rows, win, p, light_origin, light_emission, draws, st, b, e);
+            eval_bounce(rows, win, p, light_origin, light_emission, draws, st, b, e, false);
             if (e.obj < 0) {
                 missed = true;
                 break;
             }
-            if (b < SAVED_BOUNCES) saved[b] = st;
+            if (b < n_saved) save_state(s_saved, b, tid, st, e.accepted | (e.taken << 16));
             advance(p, e, st, result);
             ++n_live;
         }
@@ -501,43 +621,51 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
         for (int c = 0; c < 15; ++c) g[c] = 0.0f;
         V3 a_sum = v3(0.0f, 0.0f, 0.0f);
         int key = -1;
+        PathState entry;
         if (on) {
-            PathState entry;
-            if (b < SAVED_BOUNCES) {
-                entry = saved[b];
+            unsigned masks;
+            bool known = p.ns <= KNOWN_SAMPLES;
+            if (b < n_saved) {
+                entry = load_state(s_saved, b, tid, masks);
             } else {
-                // deeper than the array: walk forward from its last entry
-                entry = saved[SAVED_BOUNCES - 1];
+                // deeper than the saved states: walk forward from the last one
+                entry = load_state(s_saved, n_saved - 1, tid, masks);
                 V3 unused = v3(0.0f, 0.0f, 0.0f);
-                for (int j = SAVED_BOUNCES - 1; j < b; ++j) {
-                    eval_bounce(rows, win, p, light_origin, light_emission, draws, entry, j, e);
+                for (int j = n_saved - 1; j < b; ++j) {
+                    eval_bounce(rows, win, p, light_origin, light_emission, draws, entry, j, e,
+                                false);
                     advance(p, e, entry, unused);
                 }
+                known = false;
             }
-            eval_bounce(rows, win, p, light_origin, light_emission, draws, entry, b, e);
+            e.accepted = masks & 0xffffu;
+            e.taken = masks >> 16;
+            eval_bounce(rows, win, p, light_origin, light_emission, draws, entry, b, e, known);
             bounce_adjoint(rows, p, entry, e, g_res, a, g, a_sum);
             key = e.obj;
         }
         route<15>(s_grad, key, g, 0);
 
-        // emission of the shadow samples taken: to the emitting row
-        const bool lit = on && (a_sum.x != 0.0f || a_sum.y != 0.0f || a_sum.z != 0.0f);
+        // emission of the shadow samples taken, to the emitting row: from
+        // the evaluation's mask, no draw and no ray made again
+        const bool lit = on && e.taken != 0u &&
+                         (a_sum.x != 0.0f || a_sum.y != 0.0f || a_sum.z != 0.0f);
         if (__any_sync(FULL_MASK, lit)) {
-            const int base = 2 + b * (3 * p.ns + 4);
-            const float ge[3] = {a_sum.x, a_sum.y, a_sum.z};
-            const V3 to_light = light_origin - e.point;
-            for (int s = 0; s < p.ns; ++s) {
-                int target = -1;
-                if (lit) {
-                    V3 rand_dir = draws.direction(base + 3 * s, p.cube_biased != 0);
-                    if (dot(rand_dir, e.normal) > 0.0f) {
-                        V3 sro, sdir;
-                        shadow_ray(p, e.point, to_light, rand_dir, sro, sdir);
-                        int w = win.shadow(rows, p, b, s, sro, sdir);
-                        if (w >= 0) target = p.single_emissive >= 0 ? p.single_emissive : w;
+            if (p.single_emissive >= 0) {
+                // every target is the light: one add of a_sum per sample taken
+                const float k = (float)__popc(lit ? e.taken : 0u);
+                float ge[3] = {a_sum.x * k, a_sum.y * k, a_sum.z * k};
+                route<3>(s_grad, lit ? p.single_emissive : -1, ge, 12);
+            } else {
+                const V3 to_light = light_origin - e.point;
+                for (int s = 0; s < p.ns; ++s) {
+                    int target = -1;
+                    if (lit && ((e.taken >> s) & 1u)) {
+                        target = taken_target(rows, win, p, draws, e, to_light, b, s);
                     }
+                    float ge[3] = {a_sum.x, a_sum.y, a_sum.z};
+                    route<3>(s_grad, target, ge, 12);
                 }
-                route<3>(s_grad, target, ge, 12);
             }
         }
     }
@@ -564,7 +692,7 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     // one pass of global atomics per block, non-zero entries only: a row no
     // pixel of this block hit costs nothing and stays exactly zero
     __syncthreads();
-    for (int i = tid; i < table; i += BLOCK_W * BLOCK_H) {
+    for (int i = tid; i < table; i += THREADS) {
         float s = s_grad[i];
         if (s != 0.0f) atomicAdd(&g_scene[i], s);
     }
@@ -574,22 +702,84 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     }
 }
 
+// How a launch of bwd_kernel<Winners> is shaped: its dynamic shared memory
+// (the scene table, the gradient table and the entry states: one per
+// bounce, at most SAVED_BOUNCES, and no more than fit in what the card lets
+// one block opt in to) and the number of entry states kept. Returns a
+// cudaError_t (0 = success); a scene whose tables leave no room for one
+// state, or more shadow samples than Bounce::taken has bits, is refused.
+template <class Winners>
+int bwd_shape(int n_objects, int bounces, int ns, size_t* smem, int* n_saved) {
+    if (ns > MAX_SHADOW_SAMPLES) return (int)cudaErrorInvalidValue;
+    int device, optin;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, bwd_kernel<Winners>);
+    if (err != cudaSuccess) return (int)err;
+    const size_t tables = 2 * (size_t)n_objects * SCENE_COLS * sizeof(float);
+    const size_t state = (size_t)STATE_FLOATS * THREADS * sizeof(float);
+    const size_t room = (size_t)optin - attr.sharedSizeBytes;
+    const long fit = room > tables ? (long)((room - tables) / state) : 0;
+    int keep = bounces < SAVED_BOUNCES ? bounces : SAVED_BOUNCES;
+    if (fit < keep) keep = (int)fit;
+    if (bounces > 0 && keep < 1) return (int)cudaErrorInvalidValue;
+    *n_saved = keep;
+    *smem = tables + (size_t)keep * state;
+    return 0;
+}
+
 // Launches bwd_kernel<Winners> on `stream`; the arguments as the C entry
 // points of megakernel_bwd.cu and megakernel_bwd_retrace.cu take them.
 // Returns the cudaError_t of the launch (0 = launched).
 template <class Winners>
 int launch_bwd(const float* scene, const float* cam, const float* cot, const int* rec,
                float* g_scene, float* g_cam, float* primal, const Params& p, void* stream) {
-    // the scene table and the gradient table beside it
-    const size_t smem = 2 * (size_t)p.n_objects * SCENE_COLS * sizeof(float);
+    size_t smem;
+    int n_saved;
+    int err = bwd_shape<Winners>(p.n_objects, p.bounces, p.ns, &smem, &n_saved);
+    if (err != 0) return err;
     dim3 block(BLOCK_W, BLOCK_H);
     dim3 grid((p.width + BLOCK_W - 1) / BLOCK_W, (p.height + BLOCK_H - 1) / BLOCK_H);
-    cudaError_t err = cudaFuncSetAttribute(bwd_kernel<Winners>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    err = (int)cudaFuncSetAttribute(bwd_kernel<Winners>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
     bwd_kernel<Winners><<<grid, block, smem, (cudaStream_t)stream>>>(scene, cam, cot, rec, g_scene,
-                                                                      g_cam, primal, p);
+                                                                      g_cam, primal, p, n_saved);
     return (int)cudaGetLastError();
+}
+
+// What a launch of bwd_kernel<Winners> at this scene size and depth takes:
+// info[0] registers per thread, [1] local memory (stack) bytes per thread,
+// [2] static and [3] dynamic shared memory bytes per block, [4] entry states
+// kept in shared memory, [5] blocks resident per SM, [6] threads per block.
+// Returns a cudaError_t (0 = success).
+template <class Winners>
+int bwd_info(int n_objects, int bounces, int ns, int* info) {
+    size_t smem;
+    int n_saved;
+    int err = bwd_shape<Winners>(n_objects, bounces, ns, &smem, &n_saved);
+    if (err != 0) return err;
+    cudaFuncAttributes attr;
+    err = (int)cudaFuncGetAttributes(&attr, bwd_kernel<Winners>);
+    if (err != 0) return err;
+    err = (int)cudaFuncSetAttribute(bwd_kernel<Winners>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+    int blocks = 0;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bwd_kernel<Winners>, THREADS,
+                                                             smem);
+    if (err != 0) return err;
+    info[0] = attr.numRegs;
+    info[1] = (int)attr.localSizeBytes;
+    info[2] = (int)attr.sharedSizeBytes;
+    info[3] = (int)smem;
+    info[4] = n_saved;
+    info[5] = blocks;
+    info[6] = THREADS;
+    return 0;
 }
 
 }  // namespace rt

@@ -52,8 +52,9 @@ __device__ __forceinline__ bool is_zero(V3 v) {
 
 // ---------------------------------------------------------------------------
 // Philox4x32-10, counter = (global pixel, slot / 4, 0, 0), key = (seed,
-// STREAM_KEY), word = slot % 4. Slots are read in rising order, so the last
-// group is kept and every group is computed at most once.
+// STREAM_KEY), word = slot % 4. The last group is kept: a bounce reads its
+// 3*ns + 4 slots in rising order, so each of its groups is computed once
+// (four at ns = 3); a slot read out of order recomputes its group.
 // ---------------------------------------------------------------------------
 
 struct Draws {

@@ -47,7 +47,13 @@ Order of the winner-index planes (record_layout), as in the JAX package: for
 each bounce one primary plane, then, when next-event estimation runs, one
 plane per shadow sample: plane ``b*(1+ns)`` is bounce b's closest hit, plane
 ``b*(1+ns)+1+s`` its shadow sample s; -1 is a miss. Without a light (or with
-``shadow_samples == 0``) there are ``bounces`` planes.
+``shadow_samples == 0``) there are ``bounces`` planes. Dead lanes: the
+primary entry of a bounce the path did not enter alive is -1, and every
+shadow entry of a bounce whose primary entry is -1 (the bounce where the path
+left the scene and every bounce after it) is -1 too (``dead_lane_rule``);
+those shadow rays would start from a point no path uses, and no backward
+reads them. Rejected shadow samples of live bounces keep their traced
+winners, as the JAX package's recorder has them.
 
 ``tile_physics`` + ``_tile_uv`` + ``PhiloxDraws`` are the plain version of
 the forward CUDA kernel. The plain versions of the three backward kernels
@@ -128,6 +134,10 @@ BWD_KERNELS = {
 # nowhere else.
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
                  **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS}}
+
+# Shadow samples per bounce the backward kernels take: one bit each in the
+# mask of samples taken (csrc/rt_backward.cuh, Bounce::taken).
+MAX_SHADOW_SAMPLES = 32
 
 # Device memory the winner-index planes of one differentiated frame may take
 # (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
@@ -463,9 +473,27 @@ def _tile_uv(width, height, norm_height, row0, device):
 
 def record_layout(config: RenderConfig, has_light: bool) -> int:
     """Number of winner-index planes of one sample; their order is in the
-    module docstring."""
+    module docstring. Contract of their entries: an entry holds the winner
+    of its trace call (-1: nothing hit), except on dead lanes. The primary
+    entry of a bounce the path did not enter alive is -1; each shadow entry
+    of a bounce whose primary entry is -1 is -1 as well (dead_lane_rule),
+    whatever its ray would hit. The recording kernel stops tracing where the
+    path dies and writes these entries directly."""
     ns = config.shadow_samples if has_light else 0
     return config.bounces * (1 + ns)
+
+
+def dead_lane_rule(records, ns: int):
+    """The (n_rec,H,W) index planes with the dead-lane contract of
+    record_layout applied: every shadow entry of a bounce whose primary
+    entry is -1 becomes -1. Depends on the primary planes only, so any
+    holder of the records can apply it; returns a new tensor."""
+    if ns == 0:
+        return records
+    per_bounce = records.reshape(-1, 1 + ns, *records.shape[1:])
+    dead = per_bounce[:, :1] < 0
+    shadow = torch.where(dead, torch.full_like(per_bounce[:, 1:], -1), per_bounce[:, 1:])
+    return torch.cat([per_bounce[:, :1], shadow], dim=1).reshape(records.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +576,8 @@ def _sample_inputs(job: TileJob, seed: int, row0: int):
 def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False):
     """The plain PyTorch version of the forward CUDA kernel, on whatever
     device the job's tensors lie: (planes (10,H,W) float32, records
-    (n_rec,H,W) int32 or None)."""
+    (n_rec,H,W) int32 or None). The records are the tracer's with the
+    dead-lane rule applied (dead_lane_rule), as the kernel writes them."""
     shape = (job.height, job.width)
     u, v, draws = _sample_inputs(job, seed, row0)
     view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
@@ -557,8 +586,8 @@ def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False
     planes = torch.stack(outs)
     if not record:
         return planes, None
-    recs = [o.reshape(-1, *shape) for o in tracer.objs]
-    return planes, torch.cat(recs).to(torch.int32)
+    recs = torch.cat([o.reshape(-1, *shape) for o in tracer.objs]).to(torch.int32)
+    return planes, dead_lane_rule(recs, job.ns)
 
 
 def _load(library: str, function: str, argtypes):
@@ -646,6 +675,37 @@ def _launch_fwd(job: TileJob, seed: int, row0: int, record: bool):
     _raise_on(err, lib, "megakernel_fwd")
     launch_counts["megakernel_fwd_record" if record else "megakernel_fwd"] += 1
     return planes, recs
+
+
+LAUNCH_INFO_FIELDS = ("registers", "stack_bytes", "static_smem_bytes", "dynamic_smem_bytes",
+                      "saved_states", "blocks_per_sm", "threads_per_block")
+
+
+def launch_info(kernel: str, job: TileJob) -> dict:
+    """What one launch of `kernel` ("fwd", "fwd_record" or a BWD_KERNELS
+    name) takes at the job's scene size and depth, as the CUDA runtime
+    reports it for the built library (LAUNCH_INFO_FIELDS: registers and
+    stack per thread, shared memory per block, entry states the backward
+    keeps in shared memory, blocks per SM), and the warps resident per SM
+    that follow. Needs the card."""
+    info = (ctypes.c_int * len(LAUNCH_INFO_FIELDS))()
+    if kernel in ("fwd", "fwd_record"):
+        lib = build.load_library(KERNEL_LIBRARY)
+        fn, args = lib.rt_megakernel_fwd_info, (len(job.obj_type), int(kernel == "fwd_record"))
+    else:
+        library, entry = BWD_KERNELS[kernel]
+        lib = build.load_library(library)
+        fn = getattr(lib, entry + "_info")
+        args = (len(job.obj_type), job.config.bounces, job.ns)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(job.rows.device):
+        err = fn(*args, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch info: cudaError {err}")
+    out = dict(zip(LAUNCH_INFO_FIELDS, info))
+    out["warps_per_sm"] = out["blocks_per_sm"] * out["threads_per_block"] // 32
+    return out
 
 
 def run_tiles(job: TileJob, seed: int, row0: int = 0, record: bool = False):
@@ -873,6 +933,9 @@ def _launch_bwd(kernel: str, job: TileJob, seed: int, row0: int, records, cotang
         _check_tensor("records", records, (n_rec, *frame), torch.int32, dev)
     elif records is not None:
         raise ValueError(f"the {kernel} backward takes no index planes")
+    if job.ns > MAX_SHADOW_SAMPLES:
+        raise ValueError(f"the backward kernels take at most {MAX_SHADOW_SAMPLES} shadow samples "
+                         f"per bounce, not {job.ns}")
     if not isinstance(cotangents, torch.Tensor) or tuple(cotangents.shape) != (10, *frame):
         raise ValueError(f"cotangents must be a (10, {job.height}, {job.width}) tensor")
     # autograd may hand over expanded or strided cotangents

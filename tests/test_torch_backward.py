@@ -447,6 +447,35 @@ def test_row_slices_add_up_to_the_full_frame():
     np.testing.assert_allclose(sum_cam.numpy(), full_cam.numpy(), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("text", [SCENE_2_TEXT, ROOM_TEXT, "sixty_two_lights"],
+                         ids=["scene_2", "room", "sixty_two_lights_full_scan"])
+def test_dead_lane_rule_changes_no_gradient(text):
+    """The fetch backward never reads the entries dead_lane_rule overwrites:
+    from the rule-applied records and from the raw tracer's, run_bwd_plain
+    gives the same row and camera gradients bit for bit, and the replay the
+    same planes."""
+    specs = random_objects(60, seed=1, lights=(7, 20)) if text == "sixty_two_lights" \
+        else parse_objects(text)
+    _, ts = U.scene_pair(specs)
+    job = tmk.make_tile_job(ts, TCamera.default("cpu"), 40, 24, TCfg())
+    u, v, draws = tmk._sample_inputs(job, 9, 0)
+    view = tmk.SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
+    tracer = tmk.IndexRecordingTracer(view)
+    tmk.tile_physics(view, job.cam_pack, u, v, draws, job.config, (24, 40), tracer=tracer)
+    raw = torch.cat([o.reshape(-1, 24, 40) for o in tracer.objs]).to(torch.int32)
+    planes, ruled = tmk.run_tiles_plain(job, 9, record=True)
+    assert ruled.equal(tmk.dead_lane_rule(raw, job.ns))
+    if job.ns:
+        assert not ruled.equal(raw)
+    cot = _cotangents((24, 40))
+    got = tmk.replay_vjp(job, u, v, draws, ruled, cot)
+    want = tmk.replay_vjp(job, u, v, draws, raw, cot)
+    assert got[0].equal(want[0]) and got[0].equal(planes)
+    assert got[1].equal(want[1]) and got[2].equal(want[2])
+    rows, cam = tmk.run_bwd_plain(job, 9, 0, ruled, cot)
+    assert rows.equal(got[1]) and cam.equal(got[2])
+
+
 def test_gradient_matches_finite_differences_for_smooth_parameters():
     """albedo, emission_color and emission_power enter the image smoothly
     (no decision depends on them below the clip), so a central difference
@@ -499,6 +528,71 @@ def test_plain_renderer_differentiates_the_direct_estimator():
         grads.append((img.detach(), p0.grad))
     assert grads[0][0].equal(grads[1][0])
     np.testing.assert_allclose(grads[1][1].numpy(), grads[0][1].numpy(), rtol=ROWS_RTOL, atol=ROWS_ATOL)
+
+
+def test_backward_launch_refuses_more_shadow_samples_than_its_mask_holds():
+    """The backward kernels keep one bit per shadow sample taken; the
+    wrapper refuses a job with more samples before it loads any library."""
+    _, job = _room_job(TCfg(bounces=2, shadow_samples=tmk.MAX_SHADOW_SAMPLES + 1))
+    recs = torch.zeros((tmk.record_layout(job.config, True), 12, 40), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shadow samples"):
+        tmk._launch_bwd("fetch", job, 1, 0, recs, torch.zeros((10, 12, 40)))
+    with pytest.raises(ValueError, match="shadow samples"):
+        tmk._launch_bwd("replay", job, 1, 0, None, torch.zeros((10, 12, 40)))
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' warp reduction by key, as a plain model
+# ---------------------------------------------------------------------------
+
+
+def _warp_reduce_by_key(keys, vals):
+    """Plain model of csrc/rt_backward.cuh::reduce_by_key over one warp of
+    32 lanes: peers from __match_any_sync, every round one shuffle from the
+    next lane of the group above (all lanes read before any adds), then the
+    lanes at odd rank drop out. Returns (which lanes are their group's
+    lowest, the values after the call, the number of rounds)."""
+    lanes = np.arange(32, dtype=np.uint64)
+    keys = np.asarray(keys)
+    vals = np.array(vals, dtype=np.float32)
+    full = np.uint64(0xFFFFFFFF)
+    peers = np.array([sum(1 << j for j in range(32) if keys[j] == keys[i]) for i in range(32)],
+                     dtype=np.uint64)
+    below = (np.uint64(1) << lanes) - np.uint64(1)
+    popc = np.vectorize(lambda x: bin(int(x)).count("1"))
+    lowest = (peers & below) == 0
+    rank = popc(peers & below).astype(np.uint64)
+    peers &= ~((np.uint64(2) << lanes) - np.uint64(1)) & full
+    rounds = 0
+    while (peers != 0).any():
+        nxt = np.array([(int(p) & -int(p)).bit_length() for p in peers])  # __ffs
+        pulled = vals[(nxt - 1) & 31]
+        vals = np.where((nxt != 0)[:, None], vals + pulled, vals)
+        ballot = sum(1 << i for i in range(32) if rank[i] & np.uint64(1))
+        peers &= ~np.uint64(ballot) & full
+        rank >>= np.uint64(1)
+        rounds += 1
+    return lowest, vals, rounds
+
+
+@pytest.mark.parametrize("keys", ["one_key", "all_distinct", "random_few", "random_with_misses"])
+def test_warp_reduction_by_key_sums_every_group_once(keys):
+    """Each distinct key's lowest lane ends with its group's sums, in
+    ceil(log2(largest group)) rounds: what lets the kernel add once per key
+    and warp instead of once per lane."""
+    rng = np.random.default_rng(len(keys))
+    k = {"one_key": np.full(32, 4), "all_distinct": rng.permutation(32),
+         "random_few": rng.integers(0, 4, 32),
+         "random_with_misses": rng.integers(-1, 9, 32)}[keys]
+    v = rng.integers(-50, 50, (32, 15)).astype(np.float32)  # integers: exact sums
+    lowest, out, rounds = _warp_reduce_by_key(k, v)
+    groups = {int(key): np.flatnonzero(k == key) for key in np.unique(k)}
+    assert int(lowest.sum()) == len(groups)
+    for key, members in groups.items():
+        assert lowest[members[0]] and not lowest[members[1:]].any()
+        np.testing.assert_array_equal(out[members[0]], v[members].sum(axis=0))
+    largest = max(len(m) for m in groups.values())
+    assert rounds == int(np.ceil(np.log2(largest)))
 
 
 # ---------------------------------------------------------------------------

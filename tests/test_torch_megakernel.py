@@ -133,6 +133,52 @@ def test_record_layout_order(name, has_light):
     assert none is None and plain_planes.equal(planes)
 
 
+DEAD_LANE_SCENES = {
+    "scene_2": lambda: parse_objects(SCENE_2_TEXT),
+    "room": lambda: parse_objects(ROOM_TEXT),
+    "sixty_two_lights_full_scan": lambda: random_objects(60, seed=1, lights=(7, 20)),
+}
+
+
+def _raw_records(job, seed):
+    """The IndexRecordingTracer's planes of one plain sample, before the
+    dead-lane rule: what run_tiles_plain(record=True) starts from."""
+    u, v, draws = tmk._sample_inputs(job, seed, 0)
+    view = tmk.SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
+    tracer = tmk.IndexRecordingTracer(view)
+    tmk.tile_physics(view, job.cam_pack, u, v, draws, job.config, (job.height, job.width),
+                     tracer=tracer)
+    return torch.cat([o.reshape(-1, job.height, job.width) for o in tracer.objs]).to(torch.int32)
+
+
+@pytest.mark.parametrize("name", list(DEAD_LANE_SCENES))
+def test_plain_records_follow_the_dead_lane_rule(name):
+    """run_tiles_plain(record=True): every shadow entry of a bounce whose
+    primary entry is -1 is -1, every other entry is the raw tracer's."""
+    _, ts = U.scene_pair(DEAD_LANE_SCENES[name]())
+    job = tmk.make_tile_job(ts, TCamera.default("cpu"), 48, 27, TCfg())
+    if name == "sixty_two_lights_full_scan":
+        assert job.single_emissive == -1 and job.ns == 3
+    raw = _raw_records(job, seed=7)
+    planes, recs = tmk.run_tiles_plain(job, 7, record=True)
+    assert recs.shape == raw.shape and recs.dtype == torch.int32
+    per = 1 + job.ns
+    overwritten = 0
+    for b in range(job.config.bounces):
+        dead = raw[b * per] < 0
+        assert recs[b * per].equal(raw[b * per])
+        for s in range(job.ns):
+            got, was = recs[b * per + 1 + s], raw[b * per + 1 + s]
+            assert (got[dead] == -1).all()
+            assert got[~dead].equal(was[~dead])
+            overwritten += int((was[dead] != -1).sum())
+    if job.ns:  # the rule is not empty on a lit scene: frozen rays do reach the light
+        assert overwritten > 0
+    print(f"{name}: {overwritten} shadow entries of dead lanes overwritten")
+    assert tmk.dead_lane_rule(recs, job.ns).equal(recs)  # applying it again changes nothing
+    assert planes.equal(tmk.run_tiles_plain(job, 7)[0])
+
+
 def test_shadow_samples_zero_is_the_no_light_path():
     _, ts = U.scene_pair(parse_objects(ROOM_TEXT))
     job = tmk.make_tile_job(ts, TCamera.default("cpu"), 16, 8, TCfg(bounces=2, shadow_samples=0))
