@@ -21,10 +21,14 @@ standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
-    python3 chip_smoke.py --times
+    python3 chip_smoke.py --times [CHECKOUT ...]
 
 builds only the forward and backward libraries and prints one JSON line of
-K1-K5 times (kernel_times), for comparing versions of the kernels.
+K1-K5 times (kernel_times), for comparing versions of the kernels; given
+checkouts (directories holding another version of the package), it times
+each of them in the order given, one process each, and prints one JSON line
+of all the turns (kernel_times_in_turns): `--times variants/parent . .
+variants/parent` times the parent and this checkout in turns on one card.
 """
 
 from __future__ import annotations
@@ -116,11 +120,13 @@ SPARSE_SKY = RenderConfig(sky_sparse_gather=True)
 
 # Float operations (add, sub, mul, div, sqrt each count 1; comparisons,
 # selects and the integer work of the generator count 0), counted by hand
-# from csrc/megakernel_fwd.cu:
+# from csrc/megakernel_fwd.cu and csrc/rt_device.cuh. A sphere's
+# radius*radius and a box's lo + size are an object's, not a ray's: the
+# trace table computes them once per block, and no test counts them.
 F_RAY = 19          # make_ray: normalize 10, d.d 5, 0.5/a 1, three reciprocals
-F_SPHERE = 25       # intersect_sphere
-F_CUBE = 15         # intersect_cube: hi 3, two slab triples 12
-F_OCC_SPHERE = 20   # occlude_sphere
+F_SPHERE = 24       # sphere_t
+F_CUBE = 12         # box_t: two slab triples
+F_OCC_SPHERE = 19   # sphere_occludes
 F_FINISH = 19       # hit point 6 + sphere normal 13 (a cube's normal is selects)
 F_SHADE = 114       # normalize(rd), Fresnel, bounce direction, emission,
                     # branch, reflect, specular direction, throughput, next origin
@@ -159,9 +165,15 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    # the SM clock the issue-rate floor assumes: the card's highest
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
-    return {"kind": name, "smi": smi}
+         max_sm_clock_mhz=float(clock), sms=sms, torch=torch.__version__, cuda=torch.version.cuda)
+    return {"kind": name, "smi": smi, "max_sm_clock_mhz": float(clock), "sms": sms}
 
 
 # Winner source of a backward kernel's instantiation -> its name in the report.
@@ -170,8 +182,11 @@ _WINNERS = {"FetchWinners": "bwd_fetch", "RecordedWinners": "bwd_replay",
 
 
 def _ptxas_report(log: str) -> dict:
-    """ptxas -v per kernel: registers, stack frame (local memory), spills."""
-    kernels, current = {}, None
+    """ptxas -v per kernel: registers, stack frame (local memory), spills. A
+    function the kernels call (not inlined) has a frame of its own, kept
+    under "callees"; the local memory a launch takes, callees' frames
+    included, is launch_info's."""
+    kernels, current, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -183,23 +198,119 @@ def _ptxas_report(log: str) -> dict:
             else:
                 current = next((v for k, v in _WINNERS.items() if k in sym), sym)
             kernels[current] = {"symbol": sym}
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current:
-            kernels[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                                    spill_loads=int(m.group(3)))
+            frame = dict(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+            if props in (None, kernels[current]["symbol"]):
+                kernels[current].update(frame)
+            else:
+                kernels.setdefault("callees", {})[props] = frame
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-        if m and current:
+        if m and current and props in (None, kernels[current]["symbol"]):
             kernels[current].update(registers=int(m.group(1)), static_smem=int(m.group(2) or 0))
     return kernels
 
 
-def sass_counts(library_path: str, opcodes=("FFMA", "FMUL", "FADD")) -> dict:
-    """How many instructions of each opcode the library's SASS holds
-    (cuobjdump -sass, beside nvcc)."""
+def library_sass(library_path: str) -> str:
+    """The library's SASS (cuobjdump -sass, beside nvcc)."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", library_path], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", library_path], capture_output=True, text=True,
                           check=True).stdout
+
+
+def sass_counts(library_path: str, opcodes=("FFMA", "FMUL", "FADD")) -> dict:
+    """How many instructions of each opcode the library's SASS holds."""
+    sass = library_sass(library_path)
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
+def sass_function(sass: str, symbol_part: str) -> list[tuple[int, str]]:
+    """(address, instruction) of the first kernel whose symbol contains
+    `symbol_part`; a label's address is that of the instruction after it,
+    and a branch to it names the address as `(.L_x_N)`, rewritten here to
+    `@0x...`."""
+    lines, inside, labels, pending = [], False, {}, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = symbol_part in line
+            continue
+        if not inside:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            lines.append((addr, m.group(2)))
+    return [(a, re.sub(r"`\((\.L_x_\d+)\)", lambda m: "@" + hex(labels.get(m.group(1), -1)), t))
+            for a, t in lines]
+
+
+def innermost_loops(instrs) -> list[list[str]]:
+    """The bodies of the innermost loops: a backward branch closes a loop
+    from its target to itself; innermost when no other loop lies inside."""
+    edges = []
+    for addr, text in instrs:
+        m = re.search(r"\bBRA\b.*?(?:@|\b)(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            edges.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in edges
+             if not any((c, d) != (a, b) and a <= c and d <= b for c, d in edges)]
+    return [[t for addr, t in instrs if a <= addr <= b] for a, b in sorted(set(inner))]
+
+
+def trace_loops(sass: str, symbol_part: str) -> list[dict]:
+    """The object loops of the trace in one kernel's SASS: the innermost
+    loops that load 16-byte entries from shared memory (the trace table of
+    csrc/rt_device.cuh) and store nothing there. Each is
+    classed by its opcodes: the closest-hit sphere test takes a square root
+    (MUFU.RSQ); the occluder sphere test none, and multiplies at least 5
+    times per shared load (one load per sphere); a box test multiplies 6
+    times per two loads (its two table entries). Per loop: instructions,
+    shared loads (all, 16-byte) and bytes loaded, objects per pass, and per
+    object the instructions and the shared loads."""
+    out = []
+    for body in innermost_loops(sass_function(sass, symbol_part)):
+        loads = [t for t in body if re.match(r"(@!?U?P\w+\s+)?LDS(\.\w+)*\s", t)]
+        width = [16 if ".128" in t else 8 if ".64" in t else 4 for t in loads]
+        if 16 not in width or any(re.match(r"(@!?U?P\w+\s+)?STS", t) for t in body):
+            continue
+        fmul = sum(bool(re.search(r"\bFMUL\b", t)) for t in body)
+        lds = len(loads)
+        if any("MUFU.RSQ" in t for t in body):
+            kind, objects = "sphere", lds
+        elif fmul >= 5 * lds:
+            kind, objects = "sphere_occluder", lds
+        else:
+            kind, objects = "box", lds / 2
+        out.append({"instructions": len(body), "lds": lds, "lds128": width.count(16),
+                    "lds_bytes": sum(width), "fmul": fmul, "kind": kind, "objects": objects,
+                    "per_object": len(body) / objects, "lds_per_object": lds / objects})
+    return out
+
+
+def per_object_test(loops) -> dict:
+    """The fewest SASS instructions per object test of each kind over a
+    kernel's trace loops (one loop per kind and trace call site; the fewest
+    is what a floor may count), and the most shared loads per object of any
+    of them."""
+    out = {}
+    for loop in loops:
+        kind = loop["kind"]
+        out[kind] = min(out.get(kind, float("inf")), loop["per_object"])
+        out["lds_per_object"] = max(out.get("lds_per_object", 0), loop["lds_per_object"])
+    return out
 
 
 def build_libraries(names) -> tuple[list, dict, float]:
@@ -215,6 +326,22 @@ def build_libraries(names) -> tuple[list, dict, float]:
     return infos, kernels, wall
 
 
+# The kernels whose trace loops the report reads in the SASS: ptxas' name ->
+# (library, a part of the kernel's symbol).
+_TRACE_KERNELS = {"fwd_b0": (mk.KERNEL_LIBRARY, "fwd_kernelILb0E"),
+                  "bwd_replay": (mk.RETRACE_KERNEL_LIBRARY, "RecordedWinners")}
+
+
+def add_trace_loops(kernels: dict, paths: dict) -> None:
+    """Adds to ptxas' report of K1 and K4 their trace loops (trace_loops)
+    and the instructions per object test (per_object_test); `paths`: the
+    built library of each name."""
+    for kname, (library, symbol) in _TRACE_KERNELS.items():
+        loops = trace_loops(library_sass(paths[library]), symbol)
+        kernels[kname]["trace_loops"] = loops
+        kernels[kname]["sass_per_object_test"] = per_object_test(loops)
+
+
 def phase_build() -> dict:
     """The five libraries, one nvcc each, started together. Returns ptxas'
     report per kernel."""
@@ -223,8 +350,8 @@ def phase_build() -> dict:
     infos, kernels, wall = build_libraries(names)
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
     # each winner source; the FMA peak (K6) and the gather (P1)
-    if set(kernels) != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay", "bwd_direct",
-                        "peak_fma", "gather_probe"}:
+    if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay",
+                                      "bwd_direct", "peak_fma", "gather_probe"}:
         raise RuntimeError("expected seven kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     # K6 must be fused multiply-adds although every library is built with
@@ -232,6 +359,7 @@ def phase_build() -> dict:
     kernels["peak_fma"]["sass"] = sass_counts(infos[names.index(peak.LIBRARY)]["path"])
     if kernels["peak_fma"]["sass"]["FFMA"] < peak.UNROLL * peak.CHAINS:
         raise RuntimeError(f"the FMA peak kernel's SASS: {kernels['peak_fma']['sass']}")
+    add_trace_loops(kernels, {n: i["path"] for n, i in zip(names, infos)})
     mk._kernel_function()  # load the libraries just built
     for kernel in mk.BWD_KERNELS:
         mk._bwd_kernel_function(kernel)
@@ -263,6 +391,7 @@ class WorkCounter(mk.DirectTracer):
         self.draws = draws
         self.live = None
         self.alive, self.active, self.active_spheres, self.shadow_rays = [], [], [], []
+        self.shadow_taken = []
         self.is_sphere = torch.tensor([t == OBJ_SPHERE for t in scene.obj_type],
                                       device=scene.packed_rows().device)
 
@@ -279,7 +408,9 @@ class WorkCounter(mk.DirectTracer):
     def trace_shadow(self, ro, rd):
         accept = self.draws.shadow(len(self.alive) - 1).dot(self.normal) > 0
         self.shadow_rays.append(int((accept & self.live).sum()))
-        return super().trace_shadow(ro, rd)
+        hit, emission = super().trace_shadow(ro, rd)
+        self.shadow_taken.append(int((accept & self.live & hit).sum()))
+        return hit, emission
 
 
 def count_work(job, seed: int) -> dict:
@@ -294,7 +425,8 @@ def count_work(job, seed: int) -> dict:
     mk.tile_physics(view, job.cam_pack, u, v, draws, job.config,
                     (job.height, job.width), tracer=counter)
     return {"alive": counter.alive, "active": counter.active,
-            "active_spheres": counter.active_spheres, "shadow_rays": counter.shadow_rays}
+            "active_spheres": counter.active_spheres, "shadow_rays": counter.shadow_rays,
+            "shadow_taken": counter.shadow_taken}
 
 
 def agreement(planes, recs, want_p, want_r) -> dict:
@@ -602,6 +734,61 @@ def phase_bwd_modes_full_size(scenes, camera) -> tuple[list, dict]:
     emit("bwd_modes_full_size", criterion="as bwd_kernel_vs_plain, the fetch kernel as reference",
          results=[{k: v for k, v in r.items() if k != "kernel_primal_equal"} for r in results])
     return results, worst
+
+
+# More shadow samples per bounce than the backward kernels keep as bits of a
+# 32-bit mask: the samples past it are drawn and tested again where the
+# routing needs them (csrc/rt_backward.cuh, MASK_BITS).
+MANY_SHADOW_SAMPLES = 33
+# The plain fetch backward at that count runs over more row slices: 33
+# shadow samples per bounce make its autograd graph about ten times that of
+# the default three.
+MANY_SAMPLES_SLICES = 12
+
+
+def phase_many_shadow_samples(scenes, camera) -> tuple[list, list]:
+    """The backward kernels at MANY_SHADOW_SAMPLES per bounce, as the JAX
+    package takes any count: on the room at 1920x1080, default bounces, K3
+    against its plain version on K2's index planes, and K4 and K5 against K3;
+    at the comparison shape K3, K4 and K5 against their plain versions, with
+    the room's single emitter and with a full shadow scan of two lights.
+    Returns (K3's results, K4's and K5's) for stream_identity."""
+    cfg = RenderConfig(shadow_samples=MANY_SHADOW_SAMPLES)
+    room = scenes["room"]
+    two_lights = dataclasses.replace(
+        Scene.from_objects(random_objects(12, seed=3, lights=(2, 5)), device=camera.device),
+        emissive=None)
+    fetch, retrace = [], []
+    small = RenderConfig(bounces=3, shadow_samples=MANY_SHADOW_SAMPLES)
+    for name, scene in (("room", room), ("two_lights_full_scan", two_lights)):
+        fetch.append({"scene": name, "size": [SMALL_W, SMALL_H],
+                      **compare_bwd(scene, camera, small, SMALL_W, SMALL_H, seed=41)})
+        for mode in ("replay", "direct"):
+            retrace.append({"scene": name, "size": [SMALL_W, SMALL_H],
+                            **compare_retrace(mode, scene, camera, small, SMALL_W, SMALL_H,
+                                              seed=42)})
+    fetch.append({"scene": "room", "size": [WIDTH, HEIGHT], "plain_slices": MANY_SAMPLES_SLICES,
+                  **compare_bwd(room, camera, cfg, WIDTH, HEIGHT, seed=43,
+                                slices=MANY_SAMPLES_SLICES)})
+    job = mk.make_tile_job(room, camera, WIDTH, HEIGHT, cfg)
+    planes, records = mk.run_tiles(job, 43, record=True)
+    cot = random_cotangents(job)
+    ref_rows, ref_cam = mk._launch_bwd("fetch", job, 43, 0, records, cot)
+    col_scale = ref_rows.abs().amax(dim=0, keepdim=True)
+    for kernel in ("replay", "direct"):
+        g_rows, g_cam, primal = mk._launch_bwd(kernel, job, 43, 0, None, cot, want_primal=True)
+        torch.cuda.synchronize()
+        retrace.append({
+            "scene": "room", "size": [WIDTH, HEIGHT], "kernel": kernel, "against": "fetch",
+            "rows": gradient_agreement(g_rows, ref_rows, BWD_ROWS_RTOL, BWD_ROWS_ATOL, col_scale),
+            "camera": gradient_agreement(g_cam, ref_cam, BWD_CAM_RTOL, BWD_CAM_ATOL,
+                                         ref_cam.abs().max()),
+            "kernel_primal_equal": bool(primal.equal(planes))})
+    emit("many_shadow_samples", shadow_samples=MANY_SHADOW_SAMPLES,
+         criterion="as bwd_kernel_vs_plain; at full size K4 and K5 against K3",
+         results=[{k: v for k, v in r.items() if not k.endswith("primal_equal")}
+                  for r in fetch + retrace])
+    return fetch, retrace
 
 
 def phase_stream_identity(fetch_results, retrace_results) -> None:
@@ -1371,19 +1558,68 @@ def peak_bound() -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def issue_floor(scene: Scene, stats: dict, tests: dict, device: dict,
+                cfg: RenderConfig) -> dict:
+    """Least time the card's schedulers could take to issue one sample's
+    object tests (the trace loops alone, as compiled): per test the SASS
+    instructions of its kind (per_object_test), a warp issuing one
+    instruction for 32 lanes, 4 schedulers per SM each issuing one per clock
+    at the highest SM clock. The tests this input needs: every object for
+    every alive lane's closest-hit ray; per shadow ray cast (an accepted
+    sample of an active lane) with a single emitter the light's test, and
+    every other object only for the rays that reach the light (a blocked ray
+    stops at its first occluder, counted as none), with several lights every
+    object. Without FMA contraction (--fmad=false) float work issues at
+    half the FFMA rate: this floor, not the fp32 peak, is what the loops can
+    reach. It is not the bound: the bound counts what the outputs need."""
+    if not {"sphere", "sphere_occluder", "box"} <= set(tests):
+        return {"issue_floor_ms": None, "tests_found": sorted(tests)}
+    n_sph = sum(t == OBJ_SPHERE for t in scene.obj_type)
+    n_box = scene.num_objects - n_sph
+    closest = n_sph * tests["sphere"] + n_box * tests["box"]
+    lanes = sum(stats["alive"]) * closest
+    has_light = scene.has_light and cfg.shadow_samples > 0
+    if has_light:
+        rays, reached = sum(stats["shadow_rays"]), sum(stats["shadow_taken"])
+        if sum(bool(e) for e in (scene.emissive or ())) == 1:
+            light_sph = scene.obj_type[scene.light_index] == OBJ_SPHERE
+            lanes += rays * (tests["sphere"] if light_sph else tests["box"])
+            lanes += reached * ((n_sph - light_sph) * tests["sphere_occluder"]
+                                + (n_box - (not light_sph)) * tests["box"])
+        else:
+            lanes += rays * closest
+    warp_instructions = lanes / 32
+    rate = device["sms"] * 4 * device["max_sm_clock_mhz"] * 1e6
+    return {"issue_floor_ms": warp_instructions / rate * 1e3,
+            "warp_instructions": warp_instructions, "issue_per_s": rate}
+
+
 def resource_fields(res: dict) -> dict:
-    """The kernels line's resource keys of one megakernel: registers and
-    stack per thread, and per scene shared memory per block and resident
-    warps per SM."""
+    """The kernels line's resource keys of one megakernel: registers, stack
+    frame, spills and local memory per thread, and per scene shared memory
+    per block and resident warps per SM."""
     return {"registers": res["registers"], "stack_bytes": res["stack"],
             "spill_bytes": res["spill_stores"] + res["spill_loads"],
+            # local memory a thread takes, the frames of called functions included
+            "local_bytes": res["room"]["stack_bytes"],
             "smem_bytes_per_block": {n: res[n]["static_smem_bytes"] + res[n]["dynamic_smem_bytes"]
                                      for n in ("scene_2", "room")},
             "warps_per_sm": {n: res[n]["warps_per_sm"] for n in ("scene_2", "room")}}
 
 
+def trace_fields(kname: str, ptxas: dict, scenes, at_full, dev: dict, cfg) -> dict:
+    """The kernels line's trace keys of K1 or K4: the SASS instructions per
+    object test and the loops they come from, and per scene the issue-rate
+    floor of its object tests (issue_floor; K4's walk traces what K1
+    traces, its sweep nothing on these scenes)."""
+    tests = ptxas[kname]["sass_per_object_test"]
+    return {"sass_per_object_test": tests, "trace_loops": ptxas[kname]["trace_loops"],
+            "issue_floor": {n: issue_floor(scenes[n], at_full[n]["stats"], tests, dev, cfg)
+                            for n in ("scene_2", "room")}}
+
+
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  timing, checks, bench_res, sky_res) -> None:
+                  timing, checks, bench_res, sky_res, ptxas, dev) -> None:
     cfg = RenderConfig()
     rows = []
     # the census of the plain estimator (utils/flops.py, every lane of every
@@ -1425,6 +1661,7 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
             "name": kname, "route": "cuda",
             "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_fwd.cu",
             **resource_fields(res),
+            **({} if record else trace_fields("fwd_b0", ptxas, scenes, at_full, dev, cfg)),
             "replaces": replaces,
             # the serving path for the forward, the training path for the
             # recording forward, whose planes the backward consumes
@@ -1499,6 +1736,8 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
             "name": name, "route": "cuda",
             "source": "ray_tracing_tpu_torch/kernels/csrc/megakernel_bwd_retrace.cu",
             **resource_fields(timing["resources"]["bwd_" + kernel]),
+            **(trace_fields("bwd_replay", ptxas, scenes, at_full, dev, cfg)
+               if kernel == "replay" else {}),
             "replaces": replaces,
             "launches": train_counts[name],
             "launches_by_path": {"serving": counts[name], "training": train_counts[name]},
@@ -1550,15 +1789,16 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
 def kernel_times() -> int:
     """`python3 chip_smoke.py --times`: builds the forward and backward
     libraries of the package first on the import path and prints one JSON
-    line: ptxas' report and the median times of K1-K5 (and K3, K4, K5 with
+    line: ptxas' report with K1's and K4's trace loops, launch_info of each
+    kernel on the room, and the median times of K1-K5 (and K3, K4, K5 with
     all-zero cotangents) at 1920x1080 on scene_2 and the room, default
-    physics, 20 launches each. Only functions that every version of the
-    package has are called, so that another checkout's kernels can be timed
-    with this script (run it from that checkout's root with `python3 -c`
-    and runpy, or with that package first on PYTHONPATH)."""
+    physics, 20 launches each. It calls only functions that every version
+    of the package with `launch_info` has, so that another checkout's
+    kernels can be timed with this script (kernel_times_in_turns)."""
     dev = phase_device()
-    _, ptxas, wall = build_libraries((mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY,
-                                      mk.RETRACE_KERNEL_LIBRARY))
+    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY)
+    infos, ptxas, wall = build_libraries(names)
+    add_trace_loops(ptxas, {n: i["path"] for n, i in zip(names, infos)})
     device = torch.device("cuda", 0)
     scenes = make_scenes(device)
     camera = Camera.default(device)
@@ -1571,9 +1811,38 @@ def kernel_times() -> int:
         for kernel, key in (("replay", "k4"), ("direct", "k5")):
             out[name][f"{key}_ms"], out[name][f"{key}_zero_cotangents_ms"] = \
                 time_retrace(job, kernel, 20)
+    room = mk.make_tile_job(scenes["room"], camera, WIDTH, HEIGHT, RenderConfig())
+    launch = {k: mk.launch_info(k, room) for k in ("fwd", "fwd_record", *mk.BWD_KERNELS)}
     print(json.dumps({"times": out, "package": os.path.dirname(mk.__file__), "device": dev,
-                      "build_seconds": round(wall, 2), "ptxas": ptxas}), flush=True)
+                      "build_seconds": round(wall, 2), "ptxas": ptxas, "launch_info_room": launch}),
+          flush=True)
     return 0
+
+
+def kernel_times_in_turns(checkouts) -> int:
+    """`python3 chip_smoke.py --times CHECKOUT...`: kernel_times of each
+    checkout (a directory holding a version of the package, `.` for this
+    one) in the order given, each in a process of its own started in that
+    directory, so that its package is the one imported and built; prints
+    one JSON line {"turns": [...]} with each turn's line and seconds.
+    Compare versions in turns (parent, change, change, parent): two calls
+    may land on two cards."""
+    script = os.path.abspath(__file__)
+    code = ("import runpy, sys; sys.argv = ['chip_smoke.py', '--times']; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    turns = []
+    for checkout in checkouts:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=checkout, capture_output=True,
+                              text=True)
+        turn = {"checkout": checkout, "seconds": round(time.perf_counter() - t0, 1)}
+        if proc.returncode == 0:
+            turn.update(json.loads(proc.stdout.strip().splitlines()[-1]))
+        else:  # the other turns still run; the exit code says one failed
+            turn["error"] = proc.stderr[-4000:]
+        turns.append(turn)
+    print(json.dumps({"turns": turns}), flush=True)
+    return int(any("error" in t for t in turns))
 
 
 def main() -> int:
@@ -1583,6 +1852,8 @@ def main() -> int:
     t0 = time.perf_counter()
     if sys.argv[1:] == ["--times"]:
         return kernel_times()
+    if sys.argv[1:2] == ["--times"]:
+        return kernel_times_in_turns(sys.argv[2:])
     dev = phase_device()
     device = torch.device("cuda", 0)
     ptxas = phase_build()
@@ -1593,7 +1864,8 @@ def main() -> int:
     bwd_results, bwd_at_full = phase_bwd_kernel_vs_plain(scenes, camera)
     retrace = phase_bwd_modes_vs_plain(scenes, camera)
     retrace_full_results, retrace_full = phase_bwd_modes_full_size(scenes, camera)
-    phase_stream_identity(bwd_results, retrace + retrace_full_results)
+    many_fetch, many_retrace = phase_many_shadow_samples(scenes, camera)
+    phase_stream_identity(bwd_results + many_fetch, retrace + retrace_full_results + many_retrace)
     checks = phase_peak_and_gather_vs_plain(scenes, camera, sky)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
@@ -1605,7 +1877,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  timing, checks, bench_res, sky_res)
+                  timing, checks, bench_res, sky_res, ptxas, dev)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

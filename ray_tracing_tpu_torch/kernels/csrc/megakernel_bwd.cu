@@ -37,10 +37,12 @@ namespace {
 // In the walk, with up to PREFETCH shadow samples, a bounce's shadow
 // entries are loaded together with its primary entry, rejected samples'
 // included, so that their latencies overlap; the sweep reads the walk's
-// masks and asks for a shadow entry only in a full shadow scan.
+// masks and asks for a shadow entry (from its plane) only in a full shadow
+// scan.
 constexpr int PREFETCH = 4;
 
 struct FetchWinners {
+    static constexpr bool TRACES = false;
     const int* at;  // this pixel's entry of the first plane
     size_t plane;
     int pre[PREFETCH];
@@ -51,27 +53,21 @@ struct FetchWinners {
 
     __device__ __forceinline__ void begin_sweep() { sweeping = true; }
 
-    __device__ __forceinline__ int primary(const float*, const Params& p, int b, V3, V3) {
+    __device__ __forceinline__ int primary(const Tables& sc, const Params& p, int b, const Ray& ray,
+                                           int, float& t, int& axis) {
         const int* r = at + (size_t)(b * (1 + p.ns)) * plane;
         if (!sweeping && p.ns <= PREFETCH) {
 #pragma unroll
             for (int k = 0; k < PREFETCH; ++k) pre[k] = k < p.ns ? r[(size_t)(1 + k) * plane] : -1;
         }
-        return r[0];
+        return winner_hit(sc, ray, r[0], t, axis);
     }
 
-    __device__ __forceinline__ int shadow(const float*, const Params& p, int b, int s, V3,
+    __device__ __forceinline__ int shadow(const Tables&, const Params& p, int b, int s, V3,
                                           V3) const {
         if (!sweeping && p.ns <= PREFETCH) {
             return s == 0 ? pre[0] : (s == 1 ? pre[1] : (s == 2 ? pre[2] : pre[3]));
         }
-        return at[(size_t)(b * (1 + p.ns) + 1 + s) * plane];
-    }
-
-    // the plane again: no ray is needed
-    template <class RayFn>
-    __device__ __forceinline__ int shadow_again(const float*, const Params& p, int b, int s,
-                                                RayFn) const {
         return at[(size_t)(b * (1 + p.ns) + 1 + s) * plane];
     }
 };
@@ -94,8 +90,8 @@ extern "C" int rt_megakernel_bwd(const float* scene, const float* cam, const flo
 
 // The launch's shape at this scene size and depth (rt_backward.cuh,
 // bwd_info): info receives 7 ints. Returns a cudaError_t (0 = success).
-extern "C" int rt_megakernel_bwd_info(int n_objects, int bounces, int ns, int* info) {
-    return bwd_info<FetchWinners>(n_objects, bounces, ns, info);
+extern "C" int rt_megakernel_bwd_info(int n_objects, int n_spheres, int bounces, int* info) {
+    return bwd_info<FetchWinners>(n_objects, n_spheres, bounces, info);
 }
 
 // Text of a cudaError_t, for the wrapper's exception.

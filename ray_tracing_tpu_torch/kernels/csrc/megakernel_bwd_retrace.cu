@@ -14,14 +14,16 @@
 // Each is rt_backward.cuh's bwd_kernel (what it computes, its two phases,
 // its routing in shared memory) with its own source of winners:
 //   RecordedWinners (K4): phase A runs the real closest-hit trace and the
-//     shadow trace over the shared-memory table and keeps each call's
-//     winner index in a per-thread array; the reverse sweep reads them
-//     back, so no hit is traced twice. The array holds the first
-//     SAVED_WINNERS calls (all of them at 10 bounces and 3 shadow samples);
-//     a later call, which the sweep reaches only by walking forward from
-//     the last saved entry state, is traced again. This is what the JAX
-//     package's RecordingTracer + ReplayTracer compute: the winner's
-//     parameters, re-read from the table by index, are the record's planes.
+//     shadow trace over the shared-memory trace table, and keeps each saved
+//     bounce's primary winner in the bounce's state word in shared memory
+//     (rt_backward.cuh, pack_word) beside the masks of its shadow samples;
+//     the reverse sweep reads them back, so with a single emitter it traces
+//     nothing (the masks say which samples reached the light). A full
+//     shadow scan's samples taken, and a bounce deeper than the saved
+//     states, are traced again. No winner lives in local memory. This is
+//     what the JAX package's RecordingTracer + ReplayTracer compute: the
+//     winner's parameters, re-read from the table by index, are the
+//     record's planes.
 //   TracedWinners (K5): nothing is kept; the walk traces every call and
 //     the sweep's evaluation traces the bounce's primary ray again. Its
 //     shadow samples come from the walk's masks (rt_backward.cuh), so with a
@@ -33,8 +35,9 @@
 // objects (K5 its primary rays twice); bytes (the cotangents a pixel needs,
 // 28 B for a path that leaves at once) where most paths leave the scene at
 // once. Neither reads index planes. As they stand both are limited by what
-// limits K3 (latency, divergence, the generator; K4's kept winners are local
-// memory), not by either bound.
+// limits K3 (latency, divergence, the generator) and by the issue rate of
+// their trace loops, which run without fused multiply-adds (--fmad=false),
+// not by either bound.
 
 #include "rt_device.cuh"
 #include "rt_backward.cuh"
@@ -43,73 +46,47 @@ using namespace rt;
 
 namespace {
 
-// Trace calls whose winners K4 keeps per thread (256 bytes of local memory).
-constexpr int SAVED_WINNERS = 64;
-
-__device__ __forceinline__ int primary_call(const Params& p, int b) { return b * (1 + p.ns); }
-
-__device__ __forceinline__ int shadow_call(const Params& p, int b, int s) {
-    return b * (1 + p.ns) + 1 + s;
-}
-
-// K4: traced in phase A, read back in the sweep.
+// K4: the walk traces every call; the sweep takes a saved bounce's primary
+// winner from its state word (rt_backward.cuh, pack_word) and finds only
+// its t and face again, from its row. With a single emitter the sweep needs
+// no shadow winner (the masks say which samples were taken, and each one's
+// target is the light); a full shadow scan traces the samples taken again
+// for their targets, as does a bounce deeper than the saved states.
 struct RecordedWinners {
-    int kept[SAVED_WINNERS];
-    bool sweeping;
+    static constexpr bool TRACES = true;
 
-    __device__ RecordedWinners(const int*, size_t, size_t) : sweeping(false) {}
+    __device__ RecordedWinners(const int*, size_t, size_t) {}
 
-    __device__ __forceinline__ void begin_sweep() { sweeping = true; }
+    __device__ __forceinline__ void begin_sweep() {}
 
-    __device__ __forceinline__ int primary(const float* rows, const Params& p, int b, V3 ro,
-                                           V3 rd) {
-        const int call = primary_call(p, b);
-        if (sweeping && call < SAVED_WINNERS) return kept[call];
-        const int w = trace(rows, p.n_objects, ro, rd).obj;
-        if (!sweeping && call < SAVED_WINNERS) kept[call] = w;
-        return w;
+    __device__ __forceinline__ int primary(const Tables& sc, const Params&, int, const Ray& r,
+                                           int saved, float& t, int& axis) const {
+        if (saved >= 0) return winner_hit(sc, r, saved, t, axis);
+        return closest(sc.tt, r, t, axis);
     }
 
-    __device__ __forceinline__ int shadow(const float* rows, const Params& p, int b, int s, V3 ro,
-                                          V3 rd) {
-        const int call = shadow_call(p, b, s);
-        if (sweeping && call < SAVED_WINNERS) return kept[call];
-        const int w = shadow_winner(rows, p, ro, rd);
-        if (!sweeping && call < SAVED_WINNERS) kept[call] = w;
-        return w;
-    }
-
-    template <class RayFn>
-    __device__ __forceinline__ int shadow_again(const float* rows, const Params& p, int b, int s,
-                                                RayFn ray) {
-        const int call = shadow_call(p, b, s);
-        if (call < SAVED_WINNERS) return kept[call];
-        const ShadowRay r = ray();
-        return shadow_winner(rows, p, r.ro, r.dir);
+    __device__ __forceinline__ int shadow(const Tables& sc, const Params& p, int, int, V3 ro,
+                                          V3 rd) const {
+        return shadow_winner(sc, p, ro, rd);
     }
 };
 
-// K5: traced wherever asked.
+// K5: traced wherever asked, the sweep's primary rays included.
 struct TracedWinners {
+    static constexpr bool TRACES = true;
+
     __device__ TracedWinners(const int*, size_t, size_t) {}
 
     __device__ __forceinline__ void begin_sweep() {}
 
-    __device__ __forceinline__ int primary(const float* rows, const Params& p, int, V3 ro,
-                                           V3 rd) const {
-        return trace(rows, p.n_objects, ro, rd).obj;
+    __device__ __forceinline__ int primary(const Tables& sc, const Params&, int, const Ray& r, int,
+                                           float& t, int& axis) const {
+        return closest(sc.tt, r, t, axis);
     }
 
-    __device__ __forceinline__ int shadow(const float* rows, const Params& p, int, int, V3 ro,
+    __device__ __forceinline__ int shadow(const Tables& sc, const Params& p, int, int, V3 ro,
                                           V3 rd) const {
-        return shadow_winner(rows, p, ro, rd);
-    }
-
-    template <class RayFn>
-    __device__ __forceinline__ int shadow_again(const float* rows, const Params& p, int, int,
-                                                RayFn ray) const {
-        const ShadowRay r = ray();
-        return shadow_winner(rows, p, r.ro, r.dir);
+        return shadow_winner(sc, p, ro, rd);
     }
 };
 
@@ -137,12 +114,14 @@ extern "C" int rt_megakernel_bwd_direct(const float* scene, const float* cam, co
 
 // The launch shapes of the two kernels (rt_backward.cuh, bwd_info): info
 // receives 7 ints. Return a cudaError_t (0 = success).
-extern "C" int rt_megakernel_bwd_replay_info(int n_objects, int bounces, int ns, int* info) {
-    return bwd_info<RecordedWinners>(n_objects, bounces, ns, info);
+extern "C" int rt_megakernel_bwd_replay_info(int n_objects, int n_spheres, int bounces,
+                                             int* info) {
+    return bwd_info<RecordedWinners>(n_objects, n_spheres, bounces, info);
 }
 
-extern "C" int rt_megakernel_bwd_direct_info(int n_objects, int bounces, int ns, int* info) {
-    return bwd_info<TracedWinners>(n_objects, bounces, ns, info);
+extern "C" int rt_megakernel_bwd_direct_info(int n_objects, int n_spheres, int bounces,
+                                             int* info) {
+    return bwd_info<TracedWinners>(n_objects, n_spheres, bounces, info);
 }
 
 // Text of a cudaError_t, for the wrapper's exception.

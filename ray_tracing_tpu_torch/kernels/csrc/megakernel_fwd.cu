@@ -30,10 +30,16 @@
 //     are ten contiguous 128-byte rows, and neighbouring pixels follow
 //     similar paths for the first bounces, which keeps warps coherent;
 //   * the (N,16) scene table is staged once per block into dynamic shared
-//     memory (64 KB at N=1024); all threads of a warp read the same row at
-//     the same time, which shared memory serves as a broadcast;
-//   * the object kind is read from column 15 at run time, so one binary
+//     memory (64 KB at N=1024), and beside it the trace table the object
+//     loops read (rt_device.cuh, TraceTable: one 16-byte entry per sphere,
+//     two per box, each kind in a loop of its own, radius*radius and
+//     lo + size computed once per block); all threads of a warp read the
+//     same entry at the same time, which shared memory serves as a
+//     broadcast 16-byte load;
+//   * the object kinds are read from column 15 at run time, so one binary
 //     serves every scene, and every RenderConfig scalar is an argument;
+//   * three blocks (24 warps) per SM, at 80 registers a thread, to hide
+//     the latency of the trace loops' dependent chains;
 //   * the loop over bounces ends when the path is dead; that is safe because
 //     random numbers are keyed by slot (Philox4x32-10, counter = global
 //     pixel and slot group), not consumed from a stream. With RECORD the
@@ -61,17 +67,29 @@ using namespace rt;
 
 namespace {
 
+// Blocks kept resident per SM: 3 caps a thread at 80 registers (24 warps per
+// SM; at 2 it took 105). ptxas then spills a few bytes, and the kernel is
+// still faster (PERF.md, section 6).
+constexpr int FWD_MIN_BLOCKS = 3;
+
 template <bool RECORD>
-__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
+__global__ void __launch_bounds__(THREADS, FWD_MIN_BLOCKS)
 fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
            float* __restrict__ planes, int* __restrict__ rec, Params p) {
-    extern __shared__ float s_rows[];
+    // dynamic shared memory: the trace table, then the scene rows
+    extern __shared__ float4 s_dyn[];
     __shared__ float s_cam[16];
 
     const int tid = threadIdx.y * BLOCK_W + threadIdx.x;
-    for (int i = tid; i < p.n_objects * SCENE_COLS; i += BLOCK_W * BLOCK_H) s_rows[i] = scene[i];
+    float* s_table = reinterpret_cast<float*>(s_dyn);
+    float* s_rows = s_table + trace_table_floats(p.n_objects, p.n_spheres);
+    for (int i = tid; i < p.n_objects * SCENE_COLS; i += THREADS) s_rows[i] = scene[i];
     if (tid < 16) s_cam[tid] = cam[tid];
+    stage_trace_table(scene, p.n_objects, p.n_spheres, p.single_emissive, s_table);
     __syncthreads();
+    Tables sc;
+    sc.tt = trace_table(s_table, p.n_objects, p.n_spheres);
+    sc.rows = s_rows;
 
     const int x = blockIdx.x * BLOCK_W + threadIdx.x;
     const int y = blockIdx.y * BLOCK_H + threadIdx.y;
@@ -80,7 +98,6 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     const size_t plane = (size_t)p.width * p.height;
     const size_t pix = (size_t)y * p.width + x;
     const float* rows = s_rows;
-    const int n = p.n_objects;
     const bool has_light = p.light_index >= 0;
     const bool cube_biased = p.cube_biased != 0;
 
@@ -138,8 +155,9 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
         }
         const int base = 2 + b * per_bounce;
 
-        V3 d = normalize(rd);
-        Hit h = trace(rows, n, ro, rd);
+        const Ray ray = make_ray(ro, rd);
+        const V3 d = ray.d;
+        Hit h = trace(sc, ray);
         if (RECORD) rec[(size_t)(b * rec_per_bounce) * plane + pix] = h.obj;
 
         // miss: remember direction and throughput for the sky lookup
@@ -162,7 +180,7 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
                 if (active && (RECORD || accept)) {
                     V3 sample_ro, sample_dir;
                     shadow_ray(p, h.point, to_light, rand_dir, sample_ro, sample_dir);
-                    winner = shadow_winner(rows, p, sample_ro, sample_dir);
+                    winner = shadow_winner(sc, p, sample_ro, sample_dir);
                 }
                 if (RECORD) rec[(size_t)(b * rec_per_bounce + 1 + s) * plane + pix] = winner;
                 if (accept) {
@@ -238,11 +256,17 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
 // cam: 16 float32, planes: (10,height,width) float32, rec: (bounces*(1+ns),
 // height,width) int32 or null (null selects the non-recording kernel); all
 // device pointers. Returns the cudaError_t of the launch (0 = launched).
+// Dynamic shared memory of one block: the trace table and the scene rows.
+static size_t fwd_smem(int n_objects, int n_spheres) {
+    return ((size_t)trace_table_floats(n_objects, n_spheres) + (size_t)n_objects * SCENE_COLS) *
+           sizeof(float);
+}
+
 extern "C" int rt_megakernel_fwd(const float* scene, const float* cam, float* planes, int* rec,
                                  RT_PARAM_ARGS, void* stream) {
     RT_FILL_PARAMS(p);
 
-    const size_t smem = (size_t)n_objects * SCENE_COLS * sizeof(float);
+    const size_t smem = fwd_smem(n_objects, n_spheres);
     dim3 block(BLOCK_W, BLOCK_H);
     dim3 grid((width + BLOCK_W - 1) / BLOCK_W, (height + BLOCK_H - 1) / BLOCK_H);
     cudaStream_t s = (cudaStream_t)stream;
@@ -266,8 +290,8 @@ extern "C" int rt_megakernel_fwd(const float* scene, const float* cam, float* pl
 // (stack) bytes per thread, [2] static and [3] dynamic shared memory bytes
 // per block, [4] 0 (no entry states), [5] blocks resident per SM, [6]
 // threads per block. Returns a cudaError_t (0 = success).
-extern "C" int rt_megakernel_fwd_info(int n_objects, int record, int* info) {
-    const size_t smem = (size_t)n_objects * SCENE_COLS * sizeof(float);
+extern "C" int rt_megakernel_fwd_info(int n_objects, int n_spheres, int record, int* info) {
+    const size_t smem = fwd_smem(n_objects, n_spheres);
     const void* fn = record ? (const void*)fwd_kernel<true> : (const void*)fwd_kernel<false>;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -275,7 +299,7 @@ extern "C" int rt_megakernel_fwd_info(int n_objects, int record, int* info) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, BLOCK_W * BLOCK_H, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     info[0] = attr.numRegs;
     info[1] = (int)attr.localSizeBytes;
@@ -283,7 +307,7 @@ extern "C" int rt_megakernel_fwd_info(int n_objects, int record, int* info) {
     info[3] = (int)smem;
     info[4] = 0;
     info[5] = blocks;
-    info[6] = BLOCK_W * BLOCK_H;
+    info[6] = THREADS;
     return 0;
 }
 

@@ -11,15 +11,19 @@
 //   TracedWinners   megakernel_bwd_retrace.cu  K5, "direct": traced again
 //                                              wherever the adjoint asks
 //
-// A Winners type has a constructor (const int* rec, size_t plane, size_t pix)
-// and four device methods: primary(rows, p, b, ro, rd), the winner of bounce
-// b's closest-hit ray (ro, rd as the forward traces them); shadow(rows, p, b,
-// s, ro, rd), the winner of bounce b's shadow sample s, whose ray is (ro, rd);
-// shadow_again(rows, p, b, s, ray), the same winner asked for a second time
-// by the routing of a full shadow scan, where `ray()` builds the sample's
-// ray for a source that has to trace it; begin_sweep(), called once between
-// the two phases below. Trace calls are numbered in the forward's order:
-// b*(1+ns) for bounce b's primary ray, b*(1+ns)+1+s for its shadow sample s.
+// A Winners type has a constructor (const int* rec, size_t plane, size_t pix),
+// a constant TRACES (whether it traces, and so needs the trace table) and
+// three device methods, each given the shared-memory tables (Tables of
+// rt_device.cuh): primary(sc, p, b, ray, saved, t, axis), the winner of
+// bounce b's closest-hit ray (built once by the caller) with its t and face
+// axis, where `saved` is the winner the walk kept in the bounce's state word
+// (-1 where there is none); shadow(sc, p, b, s, ro, rd), the winner of
+// bounce b's shadow sample s, whose ray is (ro, rd) for a source that traces
+// (in the sweep, where a full shadow scan asks for the targets of the
+// samples taken, zero for one that does not); begin_sweep(), called once
+// between the two phases below. Trace calls are numbered in the forward's
+// order: b*(1+ns) for bounce b's primary ray, b*(1+ns)+1+s for its shadow
+// sample s.
 //
 // What it computes: the vector-Jacobian product of the per-pixel estimator
 // of megakernel_fwd.cu. Inputs are the scene table (N,16), the camera pack
@@ -43,9 +47,10 @@
 //      from (seed, pixel, slot). With the same operations in the same order
 //      and no FMA contraction the walk arrives at the forward's values bit
 //      for bit, so it takes the forward's decisions. The state at the entry
-//      of each bounce (origin, direction, throughput: 9 floats) and the
-//      bounce's two masks of shadow samples (accepted; accepted and hit) in
-//      a tenth word are kept in dynamic shared memory, laid out
+//      of each bounce (origin, direction, throughput: 9 floats) and a tenth
+//      word, the bounce's two masks of shadow samples (accepted; accepted
+//      and hit) and its primary winner, are kept in dynamic shared memory,
+//      laid out
 //      [bounce][word][thread] so that the 32 lanes of a warp touch 32
 //      consecutive words (no bank conflict, nothing in local memory). The
 //      launch keeps up to SAVED_BOUNCES of them, as many as fit beside the
@@ -57,9 +62,12 @@
 //      masks: the shadow samples need no draw, no ray and, with a single
 //      emitter, no winner (a full shadow scan asks `Winners` again for the
 //      samples taken), so the step draws only the bounce direction and the
-//      branch. The adjoint and the routing of the shadow samples both read
-//      that evaluation. A path that left the scene starts from the
-//      cotangents of the sky direction and sky throughput planes; every
+//      branch. Any number of shadow samples: the masks keep the first
+//      MASK_BITS outcomes and a count of the samples taken; the routing of a
+//      full scan draws and tests a sample past them again. The adjoint and
+//      the routing of the shadow samples both read that evaluation. A path
+//      that left the scene starts from the cotangents of the sky direction
+//      and sky throughput planes; every
 //      addition to the radiance takes the cotangent of the radiance planes.
 //      A dead lane contributes exactly nothing: the walk stops where the
 //      path died.
@@ -89,29 +97,34 @@
 
 namespace rt {
 
-constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int THREADS = BLOCK_W * BLOCK_H;
-// One bit per shadow sample in Bounce::taken.
-constexpr int MAX_SHADOW_SAMPLES = 32;
-static_assert(BLOCK_W == 32, "a warp is one row of the block: lane == threadIdx.x");
+// Shadow samples whose outcome Bounce keeps as a bit of its masks; the
+// samples past them are drawn and tested again where the routing needs them.
+constexpr int MASK_BITS = 32;
 
 struct PathState {
     V3 ro, rd, contrib;
 };
 
 // The entry states in shared memory: [bounce][word][thread], nine floats
-// and the masks of the bounce's shadow samples (accepted in the low 16
-// bits, accepted and hit in the high 16: the sweep reads them while ns <=
-// KNOWN_SAMPLES and evaluates the samples again above). At most
-// SAVED_BOUNCES of them: 100 KB for a block of 256 threads, so that two
-// blocks stay resident on an SM; at 1024 objects the tables leave room for
-// 9. A deeper bounce is walked to from the last one.
+// and a tenth word, the state word (pack_word): the masks of the bounce's
+// shadow samples while ns <= KNOWN_SAMPLES (the sweep evaluates the samples
+// again above) and the bounce's primary winner. At most SAVED_BOUNCES of
+// them: 100 KB for a block of 256 threads, so that two blocks stay resident
+// on an SM; at 1024 objects the tables leave room for fewer (bwd_shape). A
+// deeper bounce is walked to from the last one.
 constexpr int STATE_FLOATS = 10;
-constexpr int KNOWN_SAMPLES = 16;
 constexpr int SAVED_BOUNCES = 10;
+// The state word: accepted samples in bits [0, 10), accepted and hit in
+// [10, 20), the primary winner in [20, 32). A saved bounce hit something, so
+// its winner is an index below 4096; shared memory admits far fewer objects
+// (bwd_shape: each takes at least its row and its gradient row, 128 bytes of
+// the 227 KB).
+constexpr int KNOWN_SAMPLES = 10;
+constexpr unsigned KNOWN_MASK = (1u << KNOWN_SAMPLES) - 1u;
+constexpr int WINNER_SHIFT = 2 * KNOWN_SAMPLES;
 
 __device__ __forceinline__ void save_state(float* saved, int b, int tid, const PathState& st,
-                                           unsigned masks) {
+                                           unsigned word) {
     float* d = saved + (size_t)b * STATE_FLOATS * THREADS + tid;
     d[0 * THREADS] = st.ro.x;
     d[1 * THREADS] = st.ro.y;
@@ -122,24 +135,19 @@ __device__ __forceinline__ void save_state(float* saved, int b, int tid, const P
     d[6 * THREADS] = st.contrib.x;
     d[7 * THREADS] = st.contrib.y;
     d[8 * THREADS] = st.contrib.z;
-    d[9 * THREADS] = __uint_as_float(masks);
+    d[9 * THREADS] = __uint_as_float(word);
 }
 
 __device__ __forceinline__ PathState load_state(const float* saved, int b, int tid,
-                                                unsigned& masks) {
+                                                unsigned& word) {
     const float* d = saved + (size_t)b * STATE_FLOATS * THREADS + tid;
-    masks = __float_as_uint(d[9 * THREADS]);
+    word = __float_as_uint(d[9 * THREADS]);
     PathState st;
     st.ro = v3(d[0 * THREADS], d[1 * THREADS], d[2 * THREADS]);
     st.rd = v3(d[3 * THREADS], d[4 * THREADS], d[5 * THREADS]);
     st.contrib = v3(d[6 * THREADS], d[7 * THREADS], d[8 * THREADS]);
     return st;
 }
-
-// The ray of one shadow sample, for a Winners source that traces it again.
-struct ShadowRay {
-    V3 ro, dir;
-};
 
 // Everything one live bounce computes from its entry state, kept for the
 // step forward and for the adjoint.
@@ -157,10 +165,24 @@ struct Bounce {
     V3 contrib_new;      // throughput after the branch, before the light blend
     V3 sampled_light;
     float inv_num;       // 1 / max(accepted shadow samples, 1)
-    unsigned accepted;   // bit s: shadow sample s was accepted
-    unsigned taken;      // bit s: shadow sample s was accepted and hit an object
+    unsigned accepted;   // bit s < MASK_BITS: shadow sample s was accepted
+    unsigned taken;      // bit s < MASK_BITS: shadow sample s was accepted and hit an object
+    int n_taken;         // shadow samples accepted that hit an object, all of them
     bool specular, light_on;
 };
+
+// The state word of a saved bounce (see KNOWN_SAMPLES).
+__device__ __forceinline__ unsigned pack_word(const Bounce& e) {
+    return (e.accepted & KNOWN_MASK) | ((e.taken & KNOWN_MASK) << KNOWN_SAMPLES) |
+           ((unsigned)e.obj << WINNER_SHIFT);
+}
+
+// t and face axis of a winner known by its index, from its row.
+__device__ __forceinline__ int winner_hit(const Tables& sc, const Ray& r, int obj, float& t,
+                                          int& axis) {
+    if (obj >= 0) t = intersect_row(r, sc.rows + obj * SCENE_COLS, axis);
+    return obj;
+}
 
 __device__ __forceinline__ float comp(V3 v, int axis) {
     return axis == 0 ? v.x : (axis == 1 ? v.y : v.z);
@@ -183,39 +205,43 @@ __device__ __forceinline__ V3 normalize_adj(V3 v, V3 g) {
 }
 
 // The winner of shadow sample s of bounce b (hit point e.point), asked of
-// `win` a second time: the target of a full shadow scan's sample taken. The
-// sample's ray is built only for a source that traces it again.
+// `win` in the sweep: the target of a full shadow scan's sample taken. The
+// sample is drawn and its ray built only for a source that traces it.
 template <class Winners>
-__device__ __forceinline__ int taken_target(const float* rows, Winners& win, const Params& p,
+__device__ __forceinline__ int taken_target(const Tables& sc, Winners& win, const Params& p,
                                             Draws& draws, const Bounce& e, V3 to_light, int b,
                                             int s) {
-    const int base = 2 + b * (3 * p.ns + 4);
-    return win.shadow_again(rows, p, b, s, [&]() {
-        ShadowRay r;
-        shadow_ray(p, e.point, to_light, draws.direction(base + 3 * s, p.cube_biased != 0), r.ro,
-                   r.dir);
-        return r;
-    });
+    V3 ro = v3(0.0f, 0.0f, 0.0f), rd = ro;
+    if (Winners::TRACES) {
+        const int base = 2 + b * (3 * p.ns + 4);
+        shadow_ray(p, e.point, to_light, draws.direction(base + 3 * s, p.cube_biased != 0), ro,
+                   rd);
+    }
+    return win.shadow(sc, p, b, s, ro, rd);
 }
 
 // Bounce b from its entry state: the forward kernel's operations in the
-// forward kernel's order, the winners from `win`. With `known` the caller
-// has set e.accepted and e.taken from the walk: the shadow samples are then
-// summed from the masks, in the same order, with no draw and no ray.
+// forward kernel's order, the winners from `win`. The bounce's ray is built
+// once and handed to the trace, whose winner comes back with its t and face.
+// With `known` the caller has set e.accepted and e.taken from the walk: the
+// shadow samples are then summed from the masks, in the same order, with no
+// draw and no ray. `saved`: the primary winner the walk kept in the state
+// word, -1 where there is none (the walk itself, a bounce deeper than the
+// saved states).
 template <class Winners>
-__device__ __forceinline__ void eval_bounce(const float* rows, Winners& win, const Params& p,
+__device__ __forceinline__ void eval_bounce(const Tables& sc, Winners& win, const Params& p,
                                             V3 light_origin, V3 light_emission, Draws& draws,
-                                            const PathState& st, int b, Bounce& e,
-                                            bool known) {
+                                            const PathState& st, int b, Bounce& e, bool known,
+                                            int saved) {
     const int base = 2 + b * (3 * p.ns + 4);
     const bool cube_biased = p.cube_biased != 0;
+    const float* rows = sc.rows;
 
     e.ray = make_ray(st.ro, st.rd);
-    e.obj = win.primary(rows, p, b, st.ro, st.rd);
+    e.obj = win.primary(sc, p, b, e.ray, saved, e.t, e.axis);
     if (e.obj < 0) return;
 
     const float* row = rows + e.obj * SCENE_COLS;
-    e.t = intersect_any(e.ray, row, e.axis);
     e.point = e.ray.ro + e.ray.d * e.t;
     if (e.axis < 0) {
         e.normal = normalize(e.point - v3(row[0], row[1], row[2]));
@@ -231,12 +257,14 @@ __device__ __forceinline__ void eval_bounce(const float* rows, Winners& win, con
     // next-event estimation: a sample counts when its direction is accepted
     e.sampled_light = v3(0.0f, 0.0f, 0.0f);
     e.inv_num = 1.0f;
+    e.n_taken = 0;
     if (!known) {
         e.accepted = 0u;
         e.taken = 0u;
     }
     if (p.light_index >= 0 && known) {
-        // the walk's masks: the same additions in the same order
+        // the walk's masks (ns <= KNOWN_SAMPLES): the same additions in the
+        // same order
         V3 to_light = light_origin - e.point;
         V3 sum = v3(0.0f, 0.0f, 0.0f);
         float num = 0.0f;
@@ -244,9 +272,10 @@ __device__ __forceinline__ void eval_bounce(const float* rows, Winners& win, con
             if (!((e.accepted >> s) & 1u)) continue;
             num += 1.0f;
             if (!((e.taken >> s) & 1u)) continue;
+            ++e.n_taken;
             V3 em = light_emission;
             if (p.single_emissive < 0) {
-                const int w = taken_target(rows, win, p, draws, e, to_light, b, s);
+                const int w = taken_target(sc, win, p, draws, e, to_light, b, s);
                 em = v3(rows[w * SCENE_COLS + 12], rows[w * SCENE_COLS + 13],
                         rows[w * SCENE_COLS + 14]);
             }
@@ -261,13 +290,14 @@ __device__ __forceinline__ void eval_bounce(const float* rows, Winners& win, con
         for (int s = 0; s < p.ns; ++s) {
             V3 rand_dir = draws.direction(base + 3 * s, cube_biased);
             if (dot(rand_dir, e.normal) > 0.0f) {
-                e.accepted |= 1u << s;
+                if (s < MASK_BITS) e.accepted |= 1u << s;
                 num += 1.0f;
                 V3 sro, sdir;
                 shadow_ray(p, e.point, to_light, rand_dir, sro, sdir);
-                int w = win.shadow(rows, p, b, s, sro, sdir);
+                int w = win.shadow(sc, p, b, s, sro, sdir);
                 if (w >= 0) {
-                    e.taken |= 1u << s;
+                    if (s < MASK_BITS) e.taken |= 1u << s;
+                    ++e.n_taken;
                     V3 em = p.single_emissive >= 0
                                 ? light_emission
                                 : v3(rows[w * SCENE_COLS + 12], rows[w * SCENE_COLS + 13],
@@ -487,6 +517,13 @@ __device__ __forceinline__ void route(float* table, int key, float* vals, int fi
     }
 }
 
+// Floats of the trace table a Winners source needs: none for one that
+// traces nothing (Winners::TRACES false).
+template <class Winners>
+__host__ __device__ __forceinline__ int table_floats(int n, int n_sph) {
+    return Winners::TRACES ? trace_table_floats(n, n_sph) : 0;
+}
+
 // `rec`: the index planes (read by FetchWinners only). `primal`, when not
 // null, receives the ten planes the forward walk arrives at, to be held
 // against the forward kernel's (a check, not used by training). `n_saved`:
@@ -497,13 +534,16 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
            const float* __restrict__ cot, const int* __restrict__ rec,
            float* __restrict__ g_scene, float* __restrict__ g_cam,
            float* __restrict__ primal, Params p, int n_saved) {
-    extern __shared__ float s_mem[];
+    // dynamic shared memory: the trace table, the scene rows, the gradient
+    // table, the entry states
+    extern __shared__ float4 s_dyn[];
     __shared__ float s_cam[16];
     __shared__ float s_gcam[16];
     const int table = p.n_objects * SCENE_COLS;
-    float* s_rows = s_mem;
-    float* s_grad = s_mem + table;
-    float* s_saved = s_mem + 2 * table;
+    float* s_table = reinterpret_cast<float*>(s_dyn);
+    float* s_rows = s_table + table_floats<Winners>(p.n_objects, p.n_spheres);
+    float* s_grad = s_rows + table;
+    float* s_saved = s_grad + table;
 
     const int tid = threadIdx.y * BLOCK_W + threadIdx.x;
     for (int i = tid; i < table; i += THREADS) {
@@ -514,7 +554,13 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
         s_cam[tid] = cam[tid];
         s_gcam[tid] = 0.0f;
     }
+    if (Winners::TRACES) {
+        stage_trace_table(scene, p.n_objects, p.n_spheres, p.single_emissive, s_table);
+    }
     __syncthreads();
+    Tables sc;
+    sc.tt = trace_table(s_table, p.n_objects, p.n_spheres);
+    sc.rows = s_rows;
 
     const int x = blockIdx.x * BLOCK_W + threadIdx.x;
     const int y = blockIdx.y * BLOCK_H + threadIdx.y;
@@ -524,7 +570,7 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
 
     const size_t plane = (size_t)p.width * p.height;
     const size_t pix = inside ? (size_t)y * p.width + x : 0;
-    const float* rows = s_rows;
+    const float* rows = sc.rows;
     Winners win(rec, plane, pix);
 
     Draws draws;
@@ -568,12 +614,12 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     bool missed = false;  // the path left the scene at bounce n_live
     if (inside) {
         for (int b = 0; b < p.bounces; ++b) {
-            eval_bounce(rows, win, p, light_origin, light_emission, draws, st, b, e, false);
+            eval_bounce(sc, win, p, light_origin, light_emission, draws, st, b, e, false, -1);
             if (e.obj < 0) {
                 missed = true;
                 break;
             }
-            if (b < n_saved) save_state(s_saved, b, tid, st, e.accepted | (e.taken << 16));
+            if (b < n_saved) save_state(s_saved, b, tid, st, pack_word(e));
             advance(p, e, st, result);
             ++n_live;
         }
@@ -623,45 +669,53 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
         int key = -1;
         PathState entry;
         if (on) {
-            unsigned masks;
-            bool known = p.ns <= KNOWN_SAMPLES;
-            if (b < n_saved) {
-                entry = load_state(s_saved, b, tid, masks);
-            } else {
-                // deeper than the saved states: walk forward from the last one
-                entry = load_state(s_saved, n_saved - 1, tid, masks);
-                V3 unused = v3(0.0f, 0.0f, 0.0f);
-                for (int j = n_saved - 1; j < b; ++j) {
-                    eval_bounce(rows, win, p, light_origin, light_emission, draws, entry, j, e,
-                                false);
-                    advance(p, e, entry, unused);
-                }
-                known = false;
+            // from bounce b's saved state, or, deeper than the saved states,
+            // walking forward from the last one (one call site of
+            // eval_bounce for both: the kernel's code stays smaller)
+            const int first = b < n_saved ? b : n_saved - 1;
+            unsigned word;
+            entry = load_state(s_saved, first, tid, word);
+            e.accepted = word & KNOWN_MASK;
+            e.taken = (word >> KNOWN_SAMPLES) & KNOWN_MASK;
+            const bool known = p.ns <= KNOWN_SAMPLES && first == b;
+            V3 unused = v3(0.0f, 0.0f, 0.0f);
+            for (int j = first;; ++j) {
+                eval_bounce(sc, win, p, light_origin, light_emission, draws, entry, j, e, known,
+                            j == first ? (int)(word >> WINNER_SHIFT) : -1);
+                if (j == b) break;
+                advance(p, e, entry, unused);
             }
-            e.accepted = masks & 0xffffu;
-            e.taken = masks >> 16;
-            eval_bounce(rows, win, p, light_origin, light_emission, draws, entry, b, e, known);
             bounce_adjoint(rows, p, entry, e, g_res, a, g, a_sum);
             key = e.obj;
         }
         route<15>(s_grad, key, g, 0);
 
         // emission of the shadow samples taken, to the emitting row: from
-        // the evaluation's mask, no draw and no ray made again
-        const bool lit = on && e.taken != 0u &&
+        // the evaluation's masks and count, no draw and no ray made again
+        // for the first MASK_BITS samples
+        const bool lit = on && e.n_taken > 0 &&
                          (a_sum.x != 0.0f || a_sum.y != 0.0f || a_sum.z != 0.0f);
         if (__any_sync(FULL_MASK, lit)) {
             if (p.single_emissive >= 0) {
                 // every target is the light: one add of a_sum per sample taken
-                const float k = (float)__popc(lit ? e.taken : 0u);
+                const float k = (float)(lit ? e.n_taken : 0);
                 float ge[3] = {a_sum.x * k, a_sum.y * k, a_sum.z * k};
                 route<3>(s_grad, lit ? p.single_emissive : -1, ge, 12);
             } else {
                 const V3 to_light = light_origin - e.point;
+                const int base = 2 + b * (3 * p.ns + 4);
                 for (int s = 0; s < p.ns; ++s) {
                     int target = -1;
-                    if (lit && ((e.taken >> s) & 1u)) {
-                        target = taken_target(rows, win, p, draws, e, to_light, b, s);
+                    if (lit && s < MASK_BITS) {
+                        if ((e.taken >> s) & 1u) {
+                            target = taken_target(sc, win, p, draws, e, to_light, b, s);
+                        }
+                    } else if (lit && dot(draws.direction(base + 3 * s, p.cube_biased != 0),
+                                          e.normal) > 0.0f) {
+                        // past the masks: drawn and tested again; the
+                        // winner of an accepted sample, -1 when it hit
+                        // nothing, is its target
+                        target = taken_target(sc, win, p, draws, e, to_light, b, s);
                     }
                     float ge[3] = {a_sum.x, a_sum.y, a_sum.z};
                     route<3>(s_grad, target, ge, 12);
@@ -703,14 +757,13 @@ bwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
 }
 
 // How a launch of bwd_kernel<Winners> is shaped: its dynamic shared memory
-// (the scene table, the gradient table and the entry states: one per
-// bounce, at most SAVED_BOUNCES, and no more than fit in what the card lets
-// one block opt in to) and the number of entry states kept. Returns a
-// cudaError_t (0 = success); a scene whose tables leave no room for one
-// state, or more shadow samples than Bounce::taken has bits, is refused.
+// (the trace table, the scene rows, the gradient table and the entry
+// states: one per bounce, at most SAVED_BOUNCES, and no more than fit in
+// what the card lets one block opt in to) and the number of entry states
+// kept. Returns a cudaError_t (0 = success); a scene whose tables leave no
+// room for one state is refused.
 template <class Winners>
-int bwd_shape(int n_objects, int bounces, int ns, size_t* smem, int* n_saved) {
-    if (ns > MAX_SHADOW_SAMPLES) return (int)cudaErrorInvalidValue;
+int bwd_shape(int n_objects, int n_spheres, int bounces, size_t* smem, int* n_saved) {
     int device, optin;
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return (int)err;
@@ -719,7 +772,8 @@ int bwd_shape(int n_objects, int bounces, int ns, size_t* smem, int* n_saved) {
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, bwd_kernel<Winners>);
     if (err != cudaSuccess) return (int)err;
-    const size_t tables = 2 * (size_t)n_objects * SCENE_COLS * sizeof(float);
+    const size_t tables = ((size_t)table_floats<Winners>(n_objects, n_spheres) +
+                           2 * (size_t)n_objects * SCENE_COLS) * sizeof(float);
     const size_t state = (size_t)STATE_FLOATS * THREADS * sizeof(float);
     const size_t room = (size_t)optin - attr.sharedSizeBytes;
     const long fit = room > tables ? (long)((room - tables) / state) : 0;
@@ -739,7 +793,7 @@ int launch_bwd(const float* scene, const float* cam, const float* cot, const int
                float* g_scene, float* g_cam, float* primal, const Params& p, void* stream) {
     size_t smem;
     int n_saved;
-    int err = bwd_shape<Winners>(p.n_objects, p.bounces, p.ns, &smem, &n_saved);
+    int err = bwd_shape<Winners>(p.n_objects, p.n_spheres, p.bounces, &smem, &n_saved);
     if (err != 0) return err;
     dim3 block(BLOCK_W, BLOCK_H);
     dim3 grid((p.width + BLOCK_W - 1) / BLOCK_W, (p.height + BLOCK_H - 1) / BLOCK_H);
@@ -751,16 +805,17 @@ int launch_bwd(const float* scene, const float* cam, const float* cot, const int
     return (int)cudaGetLastError();
 }
 
-// What a launch of bwd_kernel<Winners> at this scene size and depth takes:
+// What a launch of bwd_kernel<Winners> at this scene's size and kinds and
+// this depth takes:
 // info[0] registers per thread, [1] local memory (stack) bytes per thread,
 // [2] static and [3] dynamic shared memory bytes per block, [4] entry states
 // kept in shared memory, [5] blocks resident per SM, [6] threads per block.
 // Returns a cudaError_t (0 = success).
 template <class Winners>
-int bwd_info(int n_objects, int bounces, int ns, int* info) {
+int bwd_info(int n_objects, int n_spheres, int bounces, int* info) {
     size_t smem;
     int n_saved;
-    int err = bwd_shape<Winners>(n_objects, bounces, ns, &smem, &n_saved);
+    int err = bwd_shape<Winners>(n_objects, n_spheres, bounces, &smem, &n_saved);
     if (err != 0) return err;
     cudaFuncAttributes attr;
     err = (int)cudaFuncGetAttributes(&attr, bwd_kernel<Winners>);

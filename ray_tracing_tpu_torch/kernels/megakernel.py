@@ -135,10 +135,6 @@ BWD_KERNELS = {
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
                  **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS}}
 
-# Shadow samples per bounce the backward kernels take: one bit each in the
-# mask of samples taken (csrc/rt_backward.cuh, Bounce::taken).
-MAX_SHADOW_SAMPLES = 32
-
 # Device memory the winner-index planes of one differentiated frame may take
 # (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
 # an 80 GB card. A module constant so that tests can shrink it.
@@ -525,6 +521,12 @@ class TileJob:
         li = _single_emissive_index(self)
         return -1 if li is None else li
 
+    @property
+    def n_spheres(self) -> int:
+        """Objects of the sphere kind: how the kernels' trace table splits
+        the scene (csrc/rt_device.cuh, TraceTable)."""
+        return sum(t == OBJ_SPHERE for t in self.obj_type)
+
 
 def make_tile_job(scene: Scene, camera: Camera, width: int, height: int,
                   config: RenderConfig = DEFAULT_CONFIG,
@@ -601,7 +603,7 @@ def _load(library: str, function: str, argtypes):
     return lib, fn
 
 
-_SCALAR_ARGS = [ctypes.c_int] * 12 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+_SCALAR_ARGS = [ctypes.c_int] * 13 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 
 def _kernel_function():
@@ -641,7 +643,8 @@ def _scalar_args(job: TileJob, seed: int, row0: int):
     csrc/rt_device.cuh, then the stream)."""
     cfg = job.config
     return (
-        len(job.obj_type), job.width, job.height, job.norm_height, int(row0), _wrap_i32(seed),
+        len(job.obj_type), job.n_spheres, job.width, job.height, job.norm_height, int(row0),
+        _wrap_i32(seed),
         job.light_index, job.single_emissive, cfg.bounces, job.ns,
         int(cfg.cube_biased_sampling), int(cfg.pixel_jitter),
         cfg.shadow_spread, cfg.light_sample_weight,
@@ -683,7 +686,7 @@ LAUNCH_INFO_FIELDS = ("registers", "stack_bytes", "static_smem_bytes", "dynamic_
 
 def launch_info(kernel: str, job: TileJob) -> dict:
     """What one launch of `kernel` ("fwd", "fwd_record" or a BWD_KERNELS
-    name) takes at the job's scene size and depth, as the CUDA runtime
+    name) takes at the job's scene size and kinds and depth, as the CUDA runtime
     reports it for the built library (LAUNCH_INFO_FIELDS: registers and
     stack per thread, shared memory per block, entry states the backward
     keeps in shared memory, blocks per SM), and the warps resident per SM
@@ -691,12 +694,13 @@ def launch_info(kernel: str, job: TileJob) -> dict:
     info = (ctypes.c_int * len(LAUNCH_INFO_FIELDS))()
     if kernel in ("fwd", "fwd_record"):
         lib = build.load_library(KERNEL_LIBRARY)
-        fn, args = lib.rt_megakernel_fwd_info, (len(job.obj_type), int(kernel == "fwd_record"))
+        fn = lib.rt_megakernel_fwd_info
+        args = (len(job.obj_type), job.n_spheres, int(kernel == "fwd_record"))
     else:
         library, entry = BWD_KERNELS[kernel]
         lib = build.load_library(library)
         fn = getattr(lib, entry + "_info")
-        args = (len(job.obj_type), job.config.bounces, job.ns)
+        args = (len(job.obj_type), job.n_spheres, job.config.bounces)
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(job.rows.device):
@@ -933,9 +937,6 @@ def _launch_bwd(kernel: str, job: TileJob, seed: int, row0: int, records, cotang
         _check_tensor("records", records, (n_rec, *frame), torch.int32, dev)
     elif records is not None:
         raise ValueError(f"the {kernel} backward takes no index planes")
-    if job.ns > MAX_SHADOW_SAMPLES:
-        raise ValueError(f"the backward kernels take at most {MAX_SHADOW_SAMPLES} shadow samples "
-                         f"per bounce, not {job.ns}")
     if not isinstance(cotangents, torch.Tensor) or tuple(cotangents.shape) != (10, *frame):
         raise ValueError(f"cotangents must be a (10, {job.height}, {job.width}) tensor")
     # autograd may hand over expanded or strided cotangents

@@ -42,6 +42,7 @@ from ray_tracing_tpu_torch.render.camera import Camera as TCamera
 from ray_tracing_tpu_torch.render.integrator import render_image
 from ray_tracing_tpu_torch.scene.parser import parse_objects
 from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
+from ray_tracing_tpu_torch.scene.types import Scene
 
 import torch_port_util as U
 
@@ -530,15 +531,101 @@ def test_plain_renderer_differentiates_the_direct_estimator():
     np.testing.assert_allclose(grads[1][1].numpy(), grads[0][1].numpy(), rtol=ROWS_RTOL, atol=ROWS_ATOL)
 
 
-def test_backward_launch_refuses_more_shadow_samples_than_its_mask_holds():
-    """The backward kernels keep one bit per shadow sample taken; the
-    wrapper refuses a job with more samples before it loads any library."""
-    _, job = _room_job(TCfg(bounces=2, shadow_samples=tmk.MAX_SHADOW_SAMPLES + 1))
+MANY_SAMPLES = 33  # more shadow samples per bounce than a 32-bit mask holds
+MANY_SHAPE = (8, 64)
+
+
+def _many_samples_case(lights):
+    """Both packages' scene (12 objects; one light: the occlusion-only
+    shadow trace, two: the full scan), 2 bounces of MANY_SAMPLES shadow
+    samples, the camera pack, injected draws and the screen grid."""
+    js, ts = U.scene_pair(random_objects(12, seed=3, lights=lights))
+    if len(lights) > 1:
+        js = dataclasses.replace(js, emissive=None)
+        ts = dataclasses.replace(ts, emissive=None)
+    jcfg = JCfg(bounces=2, shadow_samples=MANY_SAMPLES)
+    tcfg = TCfg(bounces=2, shadow_samples=MANY_SAMPLES)
+    draws = U.FixedDraws(11, 2, MANY_SAMPLES, MANY_SHAPE)
+    h, w = MANY_SHAPE
+    xs = np.broadcast_to(np.arange(w, dtype=np.float32), MANY_SHAPE)
+    ys = np.broadcast_to(np.arange(h, dtype=np.float32)[:, None], MANY_SHAPE)
+    u = (1.0 - xs / (w - 1)).astype(np.float32)
+    v = (1.0 - ys / (h - 1)).astype(np.float32)
+    jcam = jmk._camera_pack(JCamera.default(), w / h, jcfg).reshape(1, 16)
+    job = tmk.make_tile_job(ts, TCamera.default("cpu"), w, h, tcfg)
+    return js, jcfg, draws, u, v, jcam, job
+
+
+@pytest.mark.parametrize("lights", [(7,), (2, 5)], ids=["one_emitter", "two_lights_full_scan"])
+def test_backward_at_more_shadow_samples_than_a_mask_holds_matches_jax(lights):
+    """The port's three backward computations (the plain versions of K3, K4
+    and K5) at 33 shadow samples per bounce against jax.vjp of the JAX
+    package's fetch replay, which takes any count: the count the backward
+    kernels once refused."""
+    js, jcfg, draws, u, v, jcam, job = _many_samples_case(lights)
+    ju, jv = jnp.asarray(u), jnp.asarray(v)
+    rows0 = jmk.pack_scene(js)
+    recorder = jmk.IndexRecordingTracer(js)
+    jdirect = jmk.tile_physics(js, jcam[0], ju, jv, draws.jax, jcfg, MANY_SHAPE, tracer=recorder)
+    records = np.concatenate([np.asarray(o).reshape(-1, *MANY_SHAPE) for o in recorder.objs])
+    assert (records[1:1 + MANY_SAMPLES] >= 0).sum() > 0  # shadow samples are taken
+
+    ut, vt = torch.from_numpy(u.copy()), torch.from_numpy(v.copy())
+    view = tmk.SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
+    tdirect = tmk.tile_physics(view, job.cam_pack, ut, vt, draws.torch, job.config, MANY_SHAPE)
+    same = np.ones(MANY_SHAPE, bool)
+    for a, b in zip(tdirect, jdirect):
+        same &= np.abs(a.numpy() - np.asarray(b)) <= 2e-4 + 2e-3 * np.abs(np.asarray(b))
+    assert (~same).sum() <= 2
+    cot = np.random.default_rng(7).uniform(-1, 1, (10, *MANY_SHAPE)).astype(np.float32) * same
+
+    def f(rows, cam_arr):
+        tracer = jmk.FetchReplayTracer(list(recorder.objs), rows, js.obj_type, js.light_index,
+                                       emissive=js.emissive)
+        return jmk.tile_physics(None, cam_arr[0], ju, jv, draws.jax, jcfg, MANY_SHAPE,
+                                tracer=tracer)
+
+    _, vjpf = jax.vjp(f, rows0, jcam)
+    jg_rows, jg_cam = (np.asarray(g) for g in vjpf(tuple(jnp.asarray(c) for c in cot)))
+    tcot = compat.cotangents_from_numpy(cot, device="cpu")
+    port = {
+        "fetch": tmk.replay_vjp(job, ut, vt, draws.torch,
+                                torch.from_numpy(records.astype(np.int32)), tcot),
+        "replay": tmk.record_replay_vjp(job, ut, vt, draws.torch, tcot),
+        "direct": tmk.direct_vjp(job, ut, vt, draws.torch, tcot),
+    }
+    for mode, (_, g_rows, g_cam, *_) in port.items():
+        got_rows, got_cam = compat.grads_to_numpy(g_rows), compat.grads_to_numpy(g_cam)
+        assert np.isfinite(got_rows).all() and np.abs(got_rows[:, 15]).max() == 0.0, mode
+        np.testing.assert_allclose(got_rows[:, :15], jg_rows[:, :15], rtol=ROWS_RTOL,
+                                   atol=ROWS_ATOL, err_msg=mode)
+        np.testing.assert_allclose(got_cam, jg_cam.reshape(16), rtol=CAM_RTOL, atol=CAM_ATOL,
+                                   err_msg=mode)
+    # the samples past the mask carry emission gradient to the lights
+    assert np.abs(jg_rows[list(lights), 12:15]).max() > 0
+
+
+def test_backward_launch_takes_more_shadow_samples_than_a_mask_holds(monkeypatch):
+    """The wrapper hands a job of 33 shadow samples per bounce on to the
+    kernel's library (here there is none: the stand-in raises as soon as
+    it is asked for the kernel), for each backward kernel."""
+    _, job = _room_job(TCfg(bounces=2, shadow_samples=MANY_SAMPLES))
+    asked = []
+
+    class ReachedTheLibrary(Exception):
+        pass
+
+    def kernel_function(kernel):
+        asked.append(kernel)
+        raise ReachedTheLibrary
+
+    monkeypatch.setattr(tmk, "_bwd_kernel_function", kernel_function)
     recs = torch.zeros((tmk.record_layout(job.config, True), 12, 40), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shadow samples"):
-        tmk._launch_bwd("fetch", job, 1, 0, recs, torch.zeros((10, 12, 40)))
-    with pytest.raises(ValueError, match="shadow samples"):
-        tmk._launch_bwd("replay", job, 1, 0, None, torch.zeros((10, 12, 40)))
+    for kernel in tmk.BWD_KERNELS:
+        with pytest.raises(ReachedTheLibrary):
+            tmk._launch_bwd(kernel, job, 1, 0, recs if kernel == "fetch" else None,
+                            torch.zeros((10, 12, 40)))
+    assert asked == list(tmk.BWD_KERNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -623,3 +710,35 @@ def test_cuda_backward_kernel_matches_plain_version(text, cuda_device):
     assert ((g_rows - w_rows).abs() <= ROWS_RTOL * w_rows.abs() + ROWS_ATOL * scale).all()
     assert ((g_cam - w_cam).abs() <= CAM_RTOL * w_cam.abs() + 5e-4 * w_cam.abs().max()).all()
     assert g_rows[:, 15].abs().max() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lights", [(7,), (2, 5)], ids=["one_emitter", "two_lights_full_scan"])
+@pytest.mark.parametrize("kernel", ["fetch", "replay", "direct"])
+def test_cuda_backward_kernels_take_more_shadow_samples_than_a_mask_holds(kernel, lights,
+                                                                         cuda_device):
+    """K3, K4 and K5 at 33 shadow samples per bounce against their plain
+    versions on the card: the samples past the 32-bit masks are drawn and
+    tested again where the routing needs them."""
+    scene = Scene.from_objects(random_objects(12, seed=3, lights=lights), device=cuda_device)
+    if len(lights) > 1:
+        scene = dataclasses.replace(scene, emissive=None)
+    cfg = TCfg(bounces=3, shadow_samples=MANY_SAMPLES, bwd_mode=kernel)
+    job = tmk.make_tile_job(scene, TCamera.default(cuda_device), 96, 40, cfg)
+    assert tmk.backward_kernel(job) == kernel
+    cot = _cotangents((40, 96)).to(cuda_device)
+    records = tmk.run_tiles(job, seed=13, record=True)[1] if kernel == "fetch" else None
+    name = "megakernel_bwd_" + kernel
+    before = tmk.launch_counts[name]
+    g_rows, g_cam = tmk.run_bwd(job, 13, 0, records, cot)
+    torch.cuda.synchronize()
+    assert tmk.launch_counts[name] == before + 1
+    if kernel == "fetch":
+        w_rows, w_cam = tmk.run_bwd_plain(job, 13, 0, records, cot)
+    else:
+        plain = tmk.run_bwd_replay_plain if kernel == "replay" else tmk.run_bwd_direct_plain
+        w_rows, w_cam = plain(job, 13, 0, cot)
+    scale = w_rows.abs().amax(dim=0, keepdim=True)
+    assert ((g_rows - w_rows).abs() <= ROWS_RTOL * w_rows.abs() + ROWS_ATOL * scale).all()
+    assert ((g_cam - w_cam).abs() <= CAM_RTOL * w_cam.abs() + 5e-4 * w_cam.abs().max()).all()
+    assert w_rows[list(lights), 12:15].abs().max() > 0

@@ -94,3 +94,126 @@ class _Provider:
     def branch(self, b):
         return self._arr(self._src.branch_np[b])
 
+
+
+# ---------------------------------------------------------------------------
+# A plain model of the CUDA kernels' traversal (csrc/rt_device.cuh): the
+# trace table and the loops over it, for the tests of their contract. Not
+# used by the package: its plain versions keep the in-order scan of
+# ray_tracing_tpu_torch/ops/intersect.py, which the kernels must match.
+# ---------------------------------------------------------------------------
+
+
+def trace_table(rows, obj_type):
+    """The trace table of a packed (N,16) scene as the kernels stage it:
+    (spheres, boxes), each kind in index order, with the invariants each
+    test reads computed once, by the operation the test made per ray:
+    (index, centre, radius*radius) per sphere, (index, lo, lo + size) per
+    box."""
+    from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE
+
+    spheres, boxes = [], []
+    for i, kind in enumerate(obj_type):
+        r = rows[i]
+        lo = TVec3(r[0], r[1], r[2])
+        if kind == OBJ_SPHERE:
+            spheres.append((i, lo, r[3] * r[3]))
+        else:
+            boxes.append((i, lo, TVec3(r[0] + r[3], r[1] + r[4], r[2] + r[5])))
+    return spheres, boxes
+
+
+def _table_sphere_t(ro, d, a, inv2a, centre, r2):
+    """csrc/rt_device.cuh::sphere_t, the squared radius given."""
+    oc = centre - ro
+    b = -2.0 * oc.dot(d)
+    cq = oc.dot(oc) - r2
+    discr = b * b - 4.0 * a * cq
+    valid = discr > 0
+    sq = torch.sqrt(torch.where(valid, discr, 0.0))
+    s0 = (-b - sq) * inv2a
+    s1 = (-b + sq) * inv2a
+    t = torch.where(s0 < 0, s1, s0)
+    return torch.where(valid & (t >= 0), t, 3.4e38)
+
+
+def _table_sphere_occludes(ro, d, a, centre, r2, at_ref, strict):
+    """csrc/rt_device.cuh::sphere_occludes<STRICT>, the squared radius
+    given."""
+    oc = centre - ro
+    k = oc.dot(d)
+    c = oc.dot(oc) - r2
+    D = k * k - a * c
+    w = k - at_ref
+    w2 = w * w
+    inside = (k < 0) | (c < 0)
+    s1_fwd = (k >= 0) | (c <= 0)
+    if strict:
+        return (D > 0) & ((inside & (w < 0) & (D < w2) & s1_fwd) | (~inside & ((w < 0) | (D > w2))))
+    return (D > 0) & ((inside & (w <= 0) & (D <= w2) & s1_fwd) | (~inside & ((w <= 0) | (D >= w2))))
+
+
+def table_closest(rows, obj_type, ro, rd):
+    """(t, winner index) of csrc/rt_device.cuh::closest: the spheres in
+    index order with a strict comparison, then the boxes, each of which also
+    wins a tie against a winner of higher index."""
+    from ray_tracing_tpu_torch.ops import intersect as tint
+
+    d, a, shape, inv2a, inv = tint._ray_setup(ro, rd)
+    spheres, boxes = trace_table(rows, obj_type)
+    t_best = torch.full(shape, 3.4e38)
+    obj = torch.full(shape, -1, dtype=torch.int32)
+    for i, centre, r2 in spheres:
+        t = _table_sphere_t(ro, d, a, inv2a, centre, r2)
+        win = t < t_best
+        t_best, obj = torch.where(win, t, t_best), torch.where(win, i, obj)
+    for i, lo, hi in boxes:
+        t, _ = tint.intersect_cube(ro, d, lo, hi, inv)
+        win = (t < t_best) | ((t == t_best) & (i < obj))
+        t_best, obj = torch.where(win, t, t_best), torch.where(win, i, obj)
+    return t_best, obj
+
+
+def table_shadow(rows, obj_type, ro, rd, light=None):
+    """The winner of csrc/rt_device.cuh::shadow_winner (-1: none). With the
+    sole emitter `light`, shadow_occlusion: the light's test, then each
+    kind's objects in two ranges split at the light's slot in its kind, the
+    objects before it blocking on a tie too, those after it only strictly
+    earlier; else shadow_scan (table_closest)."""
+    from ray_tracing_tpu_torch.ops import intersect as tint
+
+    if light is None:
+        t, obj = table_closest(rows, obj_type, ro, rd)
+        return torch.where(t < 1e37, obj, -1)
+    d, a, shape, inv2a, inv = tint._ray_setup(ro, rd)
+    spheres, boxes = trace_table(rows, obj_type)
+    sph_before = sum(i < light for i, _, _ in spheres)
+    box_before = sum(i < light for i, _, _ in boxes)
+    light_is_sphere = any(i == light for i, _, _ in spheres)
+    if light_is_sphere:
+        _, centre, r2 = spheres[sph_before]
+        t_e = _table_sphere_t(ro, d, a, inv2a, centre, r2)
+    else:
+        _, lo, hi = boxes[box_before]
+        t_e, _ = tint.intersect_cube(ro, d, lo, hi, inv)
+    at_ref = a * t_e
+    blocked = torch.zeros(shape, dtype=torch.bool)
+    for k, (_, centre, r2) in enumerate(spheres):
+        if k != sph_before or not light_is_sphere:
+            blocked |= _table_sphere_occludes(ro, d, a, centre, r2, at_ref, k >= sph_before)
+    for m, (_, lo, hi) in enumerate(boxes):
+        if m != box_before or light_is_sphere:
+            t, _ = tint.intersect_cube(ro, d, lo, hi, inv)
+            blocked |= (t < t_e) if m >= box_before else (t <= t_e)
+    return torch.where((t_e < 1e37) & ~blocked, light, -1).to(torch.int32)
+
+
+def read_constant(header: str, name: str) -> int:
+    """The value of `constexpr int NAME = <int>;` in a header of the port's
+    csrc/."""
+    import pathlib
+    import re
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "ray_tracing_tpu_torch"
+            / "kernels" / "csrc" / header)
+    return int(re.search(rf"constexpr int {name} = (\d+);", path.read_text()).group(1))
