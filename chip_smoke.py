@@ -23,8 +23,9 @@ standard output is
 
     python3 chip_smoke.py --times [CHECKOUT ...]
 
-builds only the forward and backward libraries and prints one JSON line of
-K1-K5 times (kernel_times), for comparing versions of the kernels; given
+builds only the forward, backward and gather libraries and prints one JSON
+line of K1-K5 and P1 times (kernel_times), for comparing versions of the
+kernels; given
 checkouts (directories holding another version of the package), it times
 each of them in the order given, one process each, and prints one JSON line
 of all the turns (kernel_times_in_turns): `--times variants/parent . .
@@ -113,6 +114,13 @@ PEAK_CHECK_ITERS = (64, 128)
 PEAK_RTOL = 1e-5
 # The shape and iterations measured_vpu_peak gives K6 on the bench path.
 PEAK_GRID, PEAK_ITERS = 512, 16384
+# The gather (P1) against torch.take at ragged lengths (n mod 4 = 1, 3, 3)
+# and on views of the probe's indices at storage offsets of 1-3 and 5
+# indices, past a 16-byte boundary.
+GATHER_RAGGED = (1, 7, 8 * 1021 + 3)
+GATHER_OFFSETS = (1, 2, 3, 5)
+# Windows of the gather's times in gather_times, of which the median counts.
+GATHER_WINDOWS = 5
 # A stale sky cache comes from the camera turned by this much (yaw, pitch).
 STALE_TURN = (400.0, 120.0)
 # The sparse sky lookup, which is off by default.
@@ -193,8 +201,12 @@ def _ptxas_report(log: str) -> dict:
             sym = m.group(1)
             if "fwd_kernel" in sym:
                 current = "fwd_b1" if "ILb1E" in sym else "fwd_b0"
-            elif "peak_fma_kernel" in sym or "gather_kernel" in sym:
-                current = "peak_fma" if "peak_fma" in sym else "gather_probe"
+            elif "peak_fma_kernel" in sym:
+                current = "peak_fma"
+            elif "gather_staged_kernel" in sym:
+                current = "gather_probe_staged"
+            elif "gather_kernel" in sym:
+                current = "gather_probe"
             else:
                 current = next((v for k, v in _WINNERS.items() if k in sym), sym)
             kernels[current] = {"symbol": sym}
@@ -349,10 +361,12 @@ def phase_build() -> dict:
              peak.LIBRARY, gather_probe.LIBRARY)
     infos, kernels, wall = build_libraries(names)
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
-    # each winner source; the FMA peak (K6) and the gather (P1)
+    # each winner source; the FMA peak (K6) and the gather (P1: a small
+    # table staged in shared memory, or read through L1 and L2)
     if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay",
-                                      "bwd_direct", "peak_fma", "gather_probe"}:
-        raise RuntimeError("expected seven kernels in the ptxas logs:\n"
+                                      "bwd_direct", "peak_fma", "gather_probe",
+                                      "gather_probe_staged"}:
+        raise RuntimeError("expected eight kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     # K6 must be fused multiply-adds although every library is built with
     # --fmad=false: the unrolled body alone holds 64 x 8 of them
@@ -604,7 +618,7 @@ def phase_bwd_kernel_vs_plain(scenes, camera) -> tuple[list, dict]:
             cfg = RenderConfig(pixel_jitter=jitter)
             results.append({"scene": name, "jitter": jitter, "size": [SMALL_W, SMALL_H],
                             **compare_bwd(scene, camera, cfg, SMALL_W, SMALL_H, seed=21 + jitter)})
-    # more bounces than the kernel keeps entry states for (SAVED_BOUNCES = 10
+    # more bounces than the kernel keeps entry states for (SAVED_STATES = 10
     # in csrc/rt_backward.cuh): the deeper ones are walked to again
     results.append({"scene": "room", "bounces": 20, "size": [SMALL_W, SMALL_H],
                     **compare_bwd(scenes["room"], camera, RenderConfig(bounces=20),
@@ -677,9 +691,18 @@ def phase_bwd_modes_vs_plain(scenes, camera) -> list:
                                 **compare_retrace(mode, scenes[name], camera,
                                                   RenderConfig(pixel_jitter=jitter),
                                                   SMALL_W, SMALL_H, seed=31 + jitter)})
+    # direct's limit (UNROLL_LIMIT = 48 objects, one emitter): K5's launch
+    # shape at its largest tables
+    limit = Scene.from_objects(random_objects(mk.UNROLL_LIMIT, seed=4, lights=(7,)),
+                               device=camera.device)
+    results.append({"scene": "48_objects", "size": [SMALL_W, SMALL_H],
+                    **compare_retrace("direct", limit, camera, RenderConfig(), SMALL_W, SMALL_H,
+                                      seed=37)})
+    if results[-1]["kernel"] != "direct":
+        raise RuntimeError("bwd_mode='direct' at 48 objects did not run the direct kernel")
     for mode in ("replay", "direct"):
-        # more bounces than either kernel keeps entry states for (16) and K4
-        # keeps winners for (64 trace calls)
+        # more bounces than either kernel keeps entry states for (10 slots;
+        # K5's 75 KB share of an SM holds 6 slots of two bounces)
         results.append({"scene": "room", "bounces": 20, "size": [SMALL_W, SMALL_H],
                         **compare_retrace(mode, scenes["room"], camera, RenderConfig(bounces=20),
                                           SMALL_W, SMALL_H, seed=33)})
@@ -812,8 +835,9 @@ def phase_stream_identity(fetch_results, retrace_results) -> None:
 
 def phase_peak_and_gather_vs_plain(scenes, camera, sky) -> dict:
     """K6 against its plain recurrence at the bench's shape, P1 against
-    torch.take bit for bit at the probe's shape and at the sky's (the main
-    path's texel indices into the 2048^2 cubemap), and their times."""
+    torch.take bit for bit at the probe's shape, at ragged lengths, on views
+    at a storage offset and at the sky's (the main path's texel indices into
+    the 2048^2 cubemap), and their times."""
     dev = camera.device
     shape = (PEAK_GRID * 8, 128)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -861,17 +885,27 @@ def phase_peak_and_gather_vs_plain(scenes, camera, sky) -> dict:
     gather_res = []
     table, idx = gather_probe.probe_inputs(dev)
     cases = [("probe", table, idx)]
+    # ragged lengths, views at a storage offset and a 2-D view at a row
+    # offset: the kernel's scalar head and tail
+    flat_idx = idx.reshape(-1)
+    for n in GATHER_RAGGED:
+        cases.append((f"ragged_{n}", table, flat_idx[:n]))
+    for off in GATHER_OFFSETS:
+        cases.append((f"offset_{off}", table, flat_idx[off:off + GATHER_RAGGED[-1]]))
+    cases.append(("rows_from_1", table, idx[1:]))
     for name in ("scene_2", "room"):
         job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
         planes, _ = mk.run_tiles(job, 17)
         flat, _ = mk._miss_texel_index(sky, planes)
         cases.append((name + "_sky", sky.packed, flat))
+        cases.append((name + "_sky_offset_3", sky.packed, flat.reshape(-1)[3:]))
     for name, tbl, ix in cases:
         equal = bool(torch.equal(gather_probe.gather(tbl, ix), gather_probe.gather_plain(tbl, ix)))
         if not equal:
             raise RuntimeError(f"gather ({name}) differs from torch.take")
         gather_res.append({"case": name, "table_entries": tbl.numel(),
-                           "indices": list(ix.shape), "bit_equal": equal})
+                           "indices": list(ix.shape), "storage_offset": ix.storage_offset(),
+                           "bit_equal": equal})
     emit("peak_and_gather_vs_plain",
          peak={"criterion": "|kernel - plain| <= rtol * |plain|", "rtol": PEAK_RTOL,
                "input": "uniform [%g, %g]" % PEAK_CHECK_A, "shape": list(shape),
@@ -967,6 +1001,8 @@ def phase_sky_gather(scenes, camera, sky) -> dict:
     launches = dict(gather_probe.launch_counts)
     if not probe["correct"] or launches["gather_probe"] < 1:
         raise RuntimeError(f"gather probe: correct={probe['correct']}, launches {launches}")
+    # the probe's shape and the sky's indices, each with table[idx] and its bound
+    cases = gather_times(scenes, camera)
     # the plain version as written (its int64 cast included), for the kernels line
     table, idx = gather_probe.probe_inputs(camera.device)
     probe["plain_ms"] = device_seconds(lambda i: gather_probe.gather_plain(table, idx), 8) * 1e3
@@ -1001,8 +1037,8 @@ def phase_sky_gather(scenes, camera, sky) -> dict:
         per_scene[name] = r
     emit("sky_gather", probe=probe, launches=launches, size=[WIDTH, HEIGHT], spp=SPP,
          sky=[SKY_SIZE, SKY_SIZE], unit="ms (frame_ms_*: per 8-spp frame, two medians each)",
-         **per_scene)
-    return {"probe": probe, "launches": launches}
+         gather_cases=cases, **per_scene)
+    return {"probe": probe, "launches": launches, "cases": cases}
 
 
 def phase_main_path(scenes, camera, sky) -> dict:
@@ -1726,11 +1762,6 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
                 "hand_flops_per_px": b["flops"] / pixels,
                 "census_flops_per_px": census[sc]["retrace"],
             }
-            if kernel == "direct":
-                # not the bound: the direct kernel traces every live bounce a
-                # second time in its reverse sweep instead of keeping winners
-                per_scene[sc]["flops_as_run"] = b["flops"] + trace_work(
-                    scenes[sc], at_full[sc]["stats"], cfg)
         lead = per_scene["scene_2"]
         rows.append({
             "name": name, "route": "cuda",
@@ -1782,21 +1813,73 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
         "shape": [gather_probe.TABLE, gather_probe.N_IDX],
         "ns_per_idx": probe["kernel_ns_per_idx"], "library_ns_per_idx": probe["library_ns_per_idx"],
         "take_int64_ms": probe["take_int64_ms"],  # torch.take, which reads int64 indices
+        # the probe's shape and the sky's indices (gather_times; the sky's
+        # bound counts each distinct 32-byte sector of the table once)
+        "per_case": sky_res["cases"],
     })
+    for row in rows:  # the share of the least time the card could take
+        row["bound_share"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernels": rows}), flush=True)
 
 
+def gather_bound(planes) -> dict:
+    """Least time of one gather of each index plane, averaged over the
+    planes: every index read and every result written once, and each
+    distinct 32-byte sector of the table that the plane reads once, at the
+    memory rate."""
+    nbytes = statistics.mean(8 * q.numel() + 32 * torch.unique(q.reshape(-1) // 8).numel()
+                             for q in planes)
+    return {"bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "bytes": nbytes}
+
+
+def gather_times(scenes, camera) -> dict:
+    """P1 through gather_probe.gather, which every version of the package
+    has: at the probe's shape over its R distinct index planes (as
+    gather_probe.run times it), and on the sky's texel indices of scene_2
+    and of the room (R samples at 1920x1080 with distinct seeds, into the
+    packed 2048^2 cubemap: 100 MB, past the L2), beside table[idx] on the
+    same indices and each case's bound (gather_bound). Milliseconds per
+    call by CUDA events over 2R calls, the median of GATHER_WINDOWS such
+    windows (one window lasts some 0.1-0.5 ms)."""
+    sky = checker_sky(SKY_SIZE, device=camera.device)
+    table, idx = gather_probe.probe_inputs(camera.device)
+    cases = {"probe": (table, [idx ^ (r & 0x3FF) for r in range(gather_probe.R)])}
+    for name in ("scene_2", "room"):
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
+        cases[name + "_sky"] = (sky.packed, [
+            mk._miss_texel_index(sky, mk.run_tiles(job, 17 + r)[0])[0]
+            for r in range(gather_probe.R)])
+    out = {}
+    for name, (tbl, planes) in cases.items():
+        n = len(planes)
+        for q in planes:  # warm: the library loaded, every plane touched once
+            gather_probe.gather(tbl, q)
+            tbl[q]
+        out[name] = {
+            "ms": statistics.median(
+                device_seconds(lambda i: gather_probe.gather(tbl, planes[i % n]), 2 * n)
+                for _ in range(GATHER_WINDOWS)) * 1e3,
+            "library_ms": statistics.median(
+                device_seconds(lambda i: tbl[planes[i % n]], 2 * n)
+                for _ in range(GATHER_WINDOWS)) * 1e3,
+            "indices": list(planes[0].shape), "table_entries": tbl.numel(),
+            **gather_bound(planes)}
+    return out
+
+
 def kernel_times() -> int:
-    """`python3 chip_smoke.py --times`: builds the forward and backward
-    libraries of the package first on the import path and prints one JSON
-    line: ptxas' report with K1's and K4's trace loops, launch_info of each
-    kernel on the room, and the median times of K1-K5 (and K3, K4, K5 with
-    all-zero cotangents) at 1920x1080 on scene_2 and the room, default
-    physics, 20 launches each. It calls only functions that every version
-    of the package with `launch_info` has, so that another checkout's
-    kernels can be timed with this script (kernel_times_in_turns)."""
+    """`python3 chip_smoke.py --times`: builds the forward, backward and
+    gather libraries of the package first on the import path and prints one
+    JSON line: ptxas' report with K1's and K4's trace loops, launch_info of
+    each megakernel on the room, the median times of K1-K5 (and K3, K4, K5
+    with all-zero cotangents) at 1920x1080 on scene_2 and the room, default
+    physics, 20 launches each, and P1's times (gather_times). It calls only
+    functions that every version of the package with `launch_info` has, so
+    that another checkout's kernels can be timed with this script
+    (kernel_times_in_turns)."""
     dev = phase_device()
-    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY)
+    names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY,
+             gather_probe.LIBRARY)
     infos, ptxas, wall = build_libraries(names)
     add_trace_loops(ptxas, {n: i["path"] for n, i in zip(names, infos)})
     device = torch.device("cuda", 0)
@@ -1811,6 +1894,7 @@ def kernel_times() -> int:
         for kernel, key in (("replay", "k4"), ("direct", "k5")):
             out[name][f"{key}_ms"], out[name][f"{key}_zero_cotangents_ms"] = \
                 time_retrace(job, kernel, 20)
+    out["gather"] = gather_times(scenes, camera)
     room = mk.make_tile_job(scenes["room"], camera, WIDTH, HEIGHT, RenderConfig())
     launch = {k: mk.launch_info(k, room) for k in ("fwd", "fwd_record", *mk.BWD_KERNELS)}
     print(json.dumps({"times": out, "package": os.path.dirname(mk.__file__), "device": dev,

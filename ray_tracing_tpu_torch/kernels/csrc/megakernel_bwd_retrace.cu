@@ -24,20 +24,24 @@
 //     what the JAX package's RecordingTracer + ReplayTracer compute: the
 //     winner's parameters, re-read from the table by index, are the
 //     record's planes.
-//   TracedWinners (K5): nothing is kept; the walk traces every call and
-//     the sweep's evaluation traces the bounce's primary ray again. Its
-//     shadow samples come from the walk's masks (rt_backward.cuh), so with a
-//     single emitter no shadow ray is traced again; a full shadow scan
-//     traces the samples taken again, for their targets.
+//   TracedWinners (K5): the winners of K4. The JAX package's _bwd_kernel
+//     traces again where K4 replays a record, but the walk and the sweep
+//     see the same ray bits and the same table, so the walk's winner is the
+//     one a trace would find: the sweep takes it from the state word, and
+//     the gradients differ from K4's only by the order of float atomics.
+//     Direct mode's bound of 48 objects (ops/intersect.py, UNROLL_LIMIT)
+//     would let K5 keep its slots in less shared memory and run three
+//     blocks per SM; on the H100 that measured slower (80 registers spill
+//     852 B; PERF.md, section 6), so K5 keeps K4's launch.
 //
 // What bounds them on this card: float operations on a lit, enclosed scene,
 // where every live bounce traces its ray and its shadow rays against all N
-// objects (K5 its primary rays twice); bytes (the cotangents a pixel needs,
-// 28 B for a path that leaves at once) where most paths leave the scene at
-// once. Neither reads index planes. As they stand both are limited by what
-// limits K3 (latency, divergence, the generator) and by the issue rate of
-// their trace loops, which run without fused multiply-adds (--fmad=false),
-// not by either bound.
+// objects; bytes (the cotangents a pixel needs, 28 B for a path that leaves
+// at once) where most paths leave the scene at once. Neither reads index
+// planes. As they stand both are limited by what limits K3 (latency,
+// divergence, the generator) and by the issue rate of their trace loops,
+// which run without fused multiply-adds (--fmad=false), not by either
+// bound.
 
 #include "rt_device.cuh"
 #include "rt_backward.cuh"
@@ -71,23 +75,10 @@ struct RecordedWinners {
     }
 };
 
-// K5: traced wherever asked, the sweep's primary rays included.
-struct TracedWinners {
-    static constexpr bool TRACES = true;
-
-    __device__ TracedWinners(const int*, size_t, size_t) {}
-
-    __device__ __forceinline__ void begin_sweep() {}
-
-    __device__ __forceinline__ int primary(const Tables& sc, const Params&, int, const Ray& r, int,
-                                           float& t, int& axis) const {
-        return closest(sc.tt, r, t, axis);
-    }
-
-    __device__ __forceinline__ int shadow(const Tables& sc, const Params& p, int, int, V3 ro,
-                                          V3 rd) const {
-        return shadow_winner(sc, p, ro, rd);
-    }
+// K5: K4's winners, in an instantiation of its own (the direct mode's
+// kernel, with its own launch count).
+struct TracedWinners : RecordedWinners {
+    using RecordedWinners::RecordedWinners;
 };
 
 }  // namespace

@@ -7,9 +7,10 @@
 //   FetchWinners    megakernel_bwd.cu          K3, "fetch": the index planes
 //                                              the recording forward wrote
 //   RecordedWinners megakernel_bwd_retrace.cu  K4, "replay": traced once in
-//                                              phase A, kept in the thread
-//   TracedWinners   megakernel_bwd_retrace.cu  K5, "direct": traced again
-//                                              wherever the adjoint asks
+//                                              phase A, kept in the state
+//                                              words
+//   TracedWinners   megakernel_bwd_retrace.cu  K5, "direct": K4's, in an
+//                                              instantiation of its own
 //
 // A Winners type has a constructor (const int* rec, size_t plane, size_t pix),
 // a constant TRACES (whether it traces, and so needs the trace table) and

@@ -4,13 +4,16 @@
 
 Counterpart of ``benchmarks/vmem_gather_probe.py`` (TPU kernel P1): a
 256 KB int32 table, 2M int32 indices, out = table[idx], through the CUDA
-kernel ``kernels/csrc/gather_probe.cu`` and through PyTorch's indexing
-``table[idx]`` on the same int32 indices, the library gather. Prints
-``correct=...`` (kernel against ``torch.take``, integers, bit for bit),
-then each one's time and ns per index, ``torch.take``'s (it takes int64
-indices only, so it reads 8 MB more), then the least time the card could
-take (bytes over the memory rate). It is module 8's question in small: the sky lookup is such a
-gather (ops/cubemap.py), and the sparse sky cache exists to avoid it.
+kernels of ``kernels/csrc/gather_probe.cu`` (7/8 of this table is copied
+into the shared memory of every SM, as the TPU kernel kept it in VMEM; the
+rest, and the sky's large table, are read through L1 and L2) and through
+PyTorch's indexing ``table[idx]`` on the same int32 indices, the library
+gather. Prints ``correct=...`` (kernel against ``torch.take``, integers,
+bit for bit), then each one's time and ns per index, ``torch.take``'s (it
+takes int64 indices only, so it reads 8 MB more), then the least time the
+card could take (bytes over the memory rate). It is module 8's question in
+small: the sky lookup is such a gather (ops/cubemap.py), and the sparse sky
+cache exists to avoid it.
 
 ``gather`` is the kernel's wrapper: the CUDA kernel for tensors on the card,
 ``gather_plain`` (``torch.take``) for tensors on the CPU; nothing else
@@ -77,7 +80,11 @@ def _function():
 def _launch(table, idx):
     lib, fn = _function()
     with torch.cuda.device(idx.device):
-        out = torch.empty_like(idx)
+        # at idx's offset from a 16-byte boundary (the allocator's blocks are
+        # aligned): the kernel needs both to reach one after the same head
+        phase = idx.data_ptr() % 16 // idx.element_size()
+        out = torch.empty(idx.numel() + phase, dtype=idx.dtype,
+                          device=idx.device)[phase:].view(idx.shape)
         err = fn(table.data_ptr(), table.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(),
                  torch.cuda.current_stream(idx.device).cuda_stream)
     if err != 0:
@@ -88,14 +95,17 @@ def _launch(table, idx):
 
 
 def gather(table, idx):
-    """out = table[idx] (int32 1-D table, int32 indices of any shape): the
-    CUDA kernel for tensors on the card, the plain version for tensors on
-    the CPU. An index outside the table fails on the card (the kernel traps)
-    and raises on the CPU."""
+    """out = table[idx] (int32 1-D table, contiguous int32 indices of any
+    shape, at any storage offset): the CUDA kernel for tensors on the card,
+    the plain version for tensors on the CPU. An index outside the table
+    fails on the card (the kernel traps) and raises on the CPU. On the card
+    the result lies at idx's offset from a 16-byte boundary in its storage."""
     _check(table, idx)
     if idx.device.type == "cuda":
         if table.numel() >= 2 ** 31:
             raise ValueError("the table must have fewer than 2^31 entries")
+        if idx.numel() == 0:
+            return torch.empty_like(idx)
         return _launch(table, idx)
     if idx.device.type != "cpu":
         raise ValueError(f"unsupported device {idx.device}")

@@ -533,3 +533,52 @@ def test_cuda_residual_free_backward_kernels_match_their_plain_versions(mode, cu
     assert ((g_rows - w_rows).abs() <= ROWS_RTOL * w_rows.abs() + ROWS_ATOL * scale).all()
     assert ((g_cam - w_cam).abs() <= CAM_RTOL * w_cam.abs() + 5e-4 * w_cam.abs().max()).all()
     assert g_rows[:, 15].abs().max() == 0
+
+
+def _direct_case(case, device):
+    """(scene, config) of a case of K5's card test: the lit room; direct
+    mode's largest scene (UNROLL_LIMIT = 48 objects, one emitter); more
+    bounces than K5 keeps states for; more shadow samples than a mask
+    holds, with one emitter and with a full scan of two lights."""
+    from ray_tracing_tpu_torch.scene.types import Scene
+
+    room = Scene.from_objects(parse_objects(ROOM_TEXT), device=device)
+    two_lights = dataclasses.replace(
+        Scene.from_objects(random_objects(12, seed=3, lights=(2, 5)), device=device),
+        emissive=None)
+    return {
+        "room": (room, TCfg()),
+        "48_objects": (Scene.from_objects(random_objects(tmk.UNROLL_LIMIT, seed=4, lights=(7,)),
+                                          device=device), TCfg()),
+        "room_16_bounces": (room, TCfg(bounces=16)),
+        "room_33_samples": (room, TCfg(bounces=3, shadow_samples=33)),
+        "two_lights_33_samples": (two_lights, TCfg(bounces=3, shadow_samples=33)),
+        "two_lights": (two_lights, TCfg()),
+    }[case]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["room", "48_objects", "room_16_bounces", "room_33_samples",
+                                  "two_lights_33_samples", "two_lights"])
+def test_cuda_direct_kernel_matches_its_plain_version_and_the_replay_kernel(case, cuda_device):
+    """K5 at 256x144 against its plain version and against K4 on the same
+    cotangents: both take the walk's winners, so they agree within the order
+    of their float atomics, as each does with its plain version."""
+    scene, cfg = _direct_case(case, cuda_device)
+    job = tmk.make_tile_job(scene, TCamera.default(cuda_device), 256, 144,
+                            cfg.replace(bwd_mode="direct"))
+    assert tmk.backward_kernel(job) == "direct"
+    cot = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (10, 144, 256)).astype(np.float32))
+    cot = cot.to(cuda_device)
+    before = tmk.launch_counts["megakernel_bwd_direct"]
+    g_rows, g_cam = tmk.run_bwd(job, 11, 0, None, cot)
+    k4_rows, k4_cam = tmk._launch_bwd("replay", job, 11, 0, None, cot)
+    torch.cuda.synchronize()
+    assert tmk.launch_counts["megakernel_bwd_direct"] == before + 1
+    w_rows, w_cam = tmk.run_bwd_direct_plain(job, 11, 0, cot)
+    for want_rows, want_cam in ((w_rows, w_cam), (k4_rows, k4_cam)):
+        scale = want_rows.abs().amax(dim=0, keepdim=True)
+        assert ((g_rows - want_rows).abs() <= ROWS_RTOL * want_rows.abs() + ROWS_ATOL * scale).all()
+        assert ((g_cam - want_cam).abs() <= CAM_RTOL * want_cam.abs()
+                + 5e-4 * want_cam.abs().max()).all()
+    assert g_rows[:, 15].abs().max() == 0 and w_rows.abs().max() > 0

@@ -258,3 +258,38 @@ def test_sass_trace_loops_are_found_and_classed():
     assert loops[1]["lds_bytes"] == 24 and loops[1]["lds128"] == 1
     tests = cs.per_object_test(loops)
     assert tests == {"sphere": 5, "box": 6, "sphere_occluder": 7, "lds_per_object": 2}
+
+
+PTXAS_LOG = "\n".join(
+    f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'\n"
+    f"ptxas info    : Function properties for {sym}\n"
+    f"    {frame} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    f"ptxas info    : Used {regs} registers, used 1 barriers, {frame} bytes cumulative stack size"
+    for sym, regs, frame in (
+        ("_ZN50_GLOBAL__N__6bb81bdc_17_megakernel_fwd_cu_3443d9d410fwd_kernelILb0EEEvPKfS2_PfPiN2rt6ParamsE", 80, 48),
+        ("_ZN50_GLOBAL__N__6bb81bdc_17_megakernel_fwd_cu_3443d9d410fwd_kernelILb1EEEvPKfS2_PfPiN2rt6ParamsE", 80, 56),
+        ("_ZN2rt10bwd_kernelIN50_GLOBAL__N__f02959ca_17_megakernel_bwd_cu_3443d9d412FetchWinnersEEEvPKfS4_S4_PKiPfS7_S7_NS_6ParamsEi", 126, 32),
+        ("_ZN2rt10bwd_kernelIN58_GLOBAL__N__15dd57c3_25_megakernel_bwd_retrace_cu_3443d9d413TracedWinnersEEEvPKfS4_S4_PKiPfS7_S7_NS_6ParamsEi", 127, 32),
+        ("_ZN2rt10bwd_kernelIN58_GLOBAL__N__15dd57c3_25_megakernel_bwd_retrace_cu_3443d9d415RecordedWinnersEEEvPKfS4_S4_PKiPfS7_S7_NS_6ParamsEi", 128, 32),
+        ("_ZN44_GLOBAL__N__e2c5a0e2_11_peak_fma_cu_f2c675a815peak_fma_kernelEPKfPfii", 24, 0),
+        ("_ZN48_GLOBAL__N__210f412a_15_gather_probe_cu_7060ba7713gather_kernelEPKiS1_Pixii", 38, 0),
+        ("_ZN48_GLOBAL__N__210f412a_15_gather_probe_cu_7060ba7720gather_staged_kernelEPKiS1_Pixiii", 40, 0),
+    ))
+
+
+def test_ptxas_report_names_every_kernel():
+    """chip_smoke.py's reading of `nvcc -Xptxas -v`: each of the eight
+    kernels of the five libraries under its own name (the build phase
+    fails unless it finds all eight), with its registers and frame."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    kernels = cs._ptxas_report(PTXAS_LOG)
+    assert {k: (v["registers"], v["stack"]) for k, v in kernels.items()} == {
+        "fwd_b0": (80, 48), "fwd_b1": (80, 56), "bwd_fetch": (126, 32), "bwd_direct": (127, 32),
+        "bwd_replay": (128, 32), "peak_fma": (24, 0), "gather_probe": (38, 0),
+        "gather_probe_staged": (40, 0)}

@@ -267,6 +267,46 @@ def test_gather_checks_its_inputs():
         gather_probe.gather(table, torch.tensor([10], dtype=torch.int32))
 
 
+# Ragged lengths (n mod 4 = 1, 3, 3) and storage offsets past a 16-byte
+# boundary: the kernel's scalar head and tail (csrc/gather_probe.cu).
+RAGGED = (1, 7, 8 * 1021 + 3)
+OFFSETS = (1, 2, 3, 5)
+
+
+def _gather_cases(table_entries, device, seed=0):
+    """(name, indices) of every shape the gather takes: ragged 1-D lengths,
+    1-D views at a storage offset, a 2-D index plane, and a 2-D view at a
+    row offset; int32 indices into a table of `table_entries`."""
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.randint(0, table_entries, (9000,), generator=gen, dtype=torch.int32).to(device)
+    cases = [(f"ragged_{n}", base[:n]) for n in RAGGED]
+    cases += [(f"offset_{k}", base[k:k + RAGGED[-1]]) for k in OFFSETS]
+    plane = base[:60 * 128].reshape(60, 128)
+    cases += [("plane", plane), ("plane_rows_from_1", plane[1:]),
+              ("plane_offset_3", base[3:3 + 7 * 129].reshape(7, 129))]
+    return cases
+
+
+@pytest.mark.parametrize("case", range(len(_gather_cases(16, "cpu"))))
+def test_gather_on_the_cpu_equals_torch_take_at_every_shape(case):
+    """The wrapper on CPU tensors (its plain version) at ragged lengths, on
+    views at a storage offset and on 2-D indices: bit-equal to torch.take,
+    in idx's shape."""
+    table = torch.randint(0, 1 << 30, (4096,), generator=torch.Generator().manual_seed(1),
+                          dtype=torch.int32)
+    name, idx = _gather_cases(table.numel(), "cpu")[case]
+    assert idx.is_contiguous()
+    got = gather_probe.gather(table, idx)
+    assert got.shape == idx.shape and got.dtype == torch.int32, name
+    assert torch.equal(got, torch.take(table, idx.long())), name
+
+
+def test_gather_of_no_indices_is_empty():
+    table = torch.arange(10, dtype=torch.int32)
+    got = gather_probe.gather(table, torch.zeros((0, 3), dtype=torch.int32))
+    assert got.shape == (0, 3) and got.dtype == torch.int32
+
+
 def test_gather_bound_counts_each_byte_once():
     """The probe's bound: 256 KB of table, 8 MB of indices, 8 MB of
     results at 3.35 TB/s, about 5.09 us."""
@@ -303,3 +343,52 @@ def test_gather_kernel_equals_torch_take(cuda_device):
     got = gather_probe.gather(table, idx)
     assert gather_probe.launch_counts["gather_probe"] == before + 1
     assert torch.equal(got, torch.take(table, idx.long()))
+
+
+@pytest.mark.gpu
+def test_gather_kernel_equals_torch_take_at_every_shape(cuda_device):
+    """The kernel at ragged lengths, on views at a storage offset and on 2-D
+    indices (its scalar head and tail): bit-equal to torch.take, one launch
+    each."""
+    table, _ = gather_probe.probe_inputs(cuda_device)
+    for name, idx in _gather_cases(table.numel(), cuda_device):
+        before = gather_probe.launch_counts["gather_probe"]
+        got = gather_probe.gather(table, idx)
+        assert gather_probe.launch_counts["gather_probe"] == before + 1, name
+        assert got.shape == idx.shape, name
+        assert torch.equal(got, torch.take(table, idx.long())), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entries, n", [(5000, 8171), (40000, 65539), (70000, 70001)],
+                         ids=["small", "all_staged", "part_staged"])
+def test_gather_kernel_equals_torch_take_from_a_table_in_shared_memory(entries, n, cuda_device):
+    """A table that at least as many indices read is staged in shared
+    memory, all of it up to STAGED entries and its first STAGED above
+    (csrc/gather_probe.cu, gather_staged_kernel): bit-equal to torch.take,
+    whole and from storage offsets of 1 and 3 indices."""
+    gen = torch.Generator().manual_seed(entries)
+    table = torch.randint(0, 1 << 30, (entries,), generator=gen, dtype=torch.int32).to(cuda_device)
+    base = torch.randint(0, entries, (n + 3,), generator=gen, dtype=torch.int32).to(cuda_device)
+    for off in (0, 1, 3):
+        idx = base[off:off + n]
+        assert torch.equal(gather_probe.gather(table, idx), torch.take(table, idx.long()))
+
+
+@pytest.mark.gpu
+def test_gather_kernel_equals_torch_take_on_the_sky_indices(cuda_device):
+    """The main path's gather: one sample's texel indices of the lit room
+    and of scene_2 at 256x144 into a packed 256^2 cubemap, whole and from a
+    storage offset of 3."""
+    from ray_tracing_tpu_torch.kernels import megakernel as tmk
+    from ray_tracing_tpu_torch.ops.cubemap import checker_sky
+    from ray_tracing_tpu_torch.render.camera import Camera as TCamera
+
+    sky = checker_sky(256, device=cuda_device)
+    camera = TCamera.default(cuda_device)
+    for text in (ROOM_TEXT, SCENE_2_TEXT):
+        job = tmk.make_tile_job(tparse(text, device=cuda_device), camera, 256, 144, TCfg())
+        flat, _ = tmk._miss_texel_index(sky, tmk.run_tiles(job, 3)[0])
+        for idx in (flat, flat.reshape(-1)[3:]):
+            got = gather_probe.gather(sky.packed, idx)
+            assert torch.equal(got, torch.take(sky.packed, idx.long()))
