@@ -8,16 +8,21 @@ Builds the CUDA kernels (the forward megakernel; the three backward kernels
 the sources in this checkout, holds each against its plain PyTorch version on
 the card, renders the serving path (scene_2 and a lit room at 1920x1080,
 default physics, a 2048^2 packed cubemap) through the entry points a user
-would call, runs the command line, then drives the training path at the same
-size (the gradient of a frame's sum, five steps of `fit` in fetch and in
-direct mode, a 100-sample gradient past the fetch budget, which runs
-"replay", the invert app), the measurement path (the port's bench, whose JSON
-line it prints on a line of its own, and the gather probe with the sparse sky
-cache on and off) and times the kernels. Every phase prints one JSON line
-with the seconds it took (about 90 s in all on an H100, the kernels'
+would call, runs the command line, then the interactive frame path (the
+native layer built with the host's C++ compiler: its parser and PNG writer;
+a skybox decoded and read back from its memo; progressive films through K1
+against the plain pass; films at the reference's 1280x960 timed pass by
+pass; the HTTP render service on the room, in-process; the terminal viewer
+under a pseudo-terminal), then drives the training path at 1920x1080 (the
+gradient of a frame's sum, five steps of `fit` in fetch and in direct mode,
+a 100-sample gradient past the fetch budget, which runs "replay", the
+invert app), the measurement path (the port's bench, whose JSON line it
+prints on a line of its own, and the gather probe with the sparse sky cache
+on and off) and times the kernels. Every phase prints one JSON line with
+the seconds it took (two to three minutes in all on an H100, the kernels'
 build included); any phase that fails raises and the run exits non-zero.
-Needs one CUDA device and nvcc; imports nothing of JAX. The last line of
-standard output is
+Needs one CUDA device, nvcc and a C++ compiler; imports nothing of JAX.
+The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -35,6 +40,7 @@ variants/parent` times the parent and this checkout in turns on one card.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import dataclasses
 import json
 import os
@@ -45,21 +51,40 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
-from ray_tracing_tpu_torch import bench
+from ray_tracing_tpu_torch import bench, native
+from ray_tracing_tpu_torch.apps.cli import FULL_RES_SPP, make_cuda_render_fn
 from ray_tracing_tpu_torch.apps.cli import main as cli_main
 from ray_tracing_tpu_torch.apps.invert import main as invert_main
+from ray_tracing_tpu_torch.apps.serve import RenderService, make_handler, resolve_u8
 from ray_tracing_tpu_torch.config import RenderConfig
 from ray_tracing_tpu_torch.diff.inverse import SCENE_PARAM_FIELDS, fit
-from ray_tracing_tpu_torch.io.image import png_size
+from ray_tracing_tpu_torch.io.image import (
+    SKYBOX_FILES,
+    load_cubemap,
+    load_image,
+    png_size,
+    read_png,
+    skybox_cache_dir,
+    to_uint8,
+)
 from ray_tracing_tpu_torch.kernels import build, peak
 from ray_tracing_tpu_torch.kernels import megakernel as mk
-from ray_tracing_tpu_torch.ops.cubemap import checker_sky
+from ray_tracing_tpu_torch.ops.cubemap import CubemapData, checker_sky
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
 from ray_tracing_tpu_torch.render.camera import Camera, rotate
+from ray_tracing_tpu_torch.render.film import (
+    Film,
+    lowres_size,
+    pass_seed,
+    progressive_scales,
+    render_pass,
+)
 from ray_tracing_tpu_torch.render.integrator import render_image
-from ray_tracing_tpu_torch.scene.parser import parse_scene_string
+from ray_tracing_tpu_torch.scene.native import parse_objects_native
+from ray_tracing_tpu_torch.scene.parser import parse_objects, parse_scene_string
 from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, Scene
 from ray_tracing_tpu_torch.utils import flops, gather_probe
@@ -1120,6 +1145,362 @@ def phase_cli() -> None:
         emit("cli", seconds=round(seconds, 3), png=list(size), bytes=os.path.getsize(out))
 
 
+# ---------------------------------------------------------------------------
+# The interactive frame path: native layer, skybox loading, the film, the
+# server and the terminal viewer
+# ---------------------------------------------------------------------------
+
+FILM_W, FILM_H = 1280, 960          # the reference's window
+SMALL_FILM = (320, 240)             # film_vs_plain
+FILM_FULL_PASSES = 16               # full-res passes timed per session
+VIEWER_W, VIEWER_H = 192, 108       # the viewer's cap (apps/cli.py)
+CUBE_FACE = 1024                    # cubemap_load: six faces of this size
+FILM_ATOL = 1e-6
+HEALTH_KEYS = {"status", "passes", "film_weight", "rays_per_second", "uptime_s", "device",
+               "resolution", "event_to_frame_ms"}
+
+
+def object_rows(specs):
+    """(kinds, (N, 16) float32): parsed objects as a Scene stores them."""
+    return [o.kind for o in specs], np.array(
+        [[*o.p0, *o.p1, *o.albedo, o.roughness, o.reflectance, o.metallic,
+          *o.emission_color, o.emission_power] for o in specs], np.float32)
+
+
+def phase_native() -> None:
+    """The port's rt_native, built from this checkout's source: its parser
+    against the Python parser, its PNG writer through read_png."""
+    t0 = time.perf_counter()
+    lib = native.lib()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        raise RuntimeError(f"rt_native did not build from {native.SOURCE}")
+    objects = {}
+    for name, text in (("scene_2", SCENE_2_TEXT), ("room", ROOM_TEXT)):
+        got, want = object_rows(parse_objects_native(text)), object_rows(parse_objects(text))
+        if got[0] != want[0] or not np.array_equal(got[1], want[1]):
+            raise RuntimeError(f"{name}: the native parser's objects differ from Python's")
+        objects[name] = len(got[0])
+    frame = np.random.default_rng(8).integers(0, 256, (FILM_H, FILM_W, 3), dtype=np.uint8)
+    png_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flip in (0, 1):
+            path = os.path.join(tmp, f"frame_{flip}.png")
+            t = time.perf_counter()
+            rc = lib.rt_write_png(path.encode(), FILM_W, FILM_H,
+                                  frame.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), flip)
+            png_ms[flip] = (time.perf_counter() - t) * 1e3
+            if rc != 0 or not np.array_equal(read_png(path), frame[::-1] if flip else frame):
+                raise RuntimeError(f"rt_write_png (flip={flip}) rc {rc}: read back differs")
+    emit("native", library=str(native.LIB_PATH), build_s=round(build_s, 3), objects=objects,
+         png=[FILM_W, FILM_H], png_write_ms=png_ms[0], png_write_flipped_ms=png_ms[1])
+
+
+def phase_cubemap_load(device) -> None:
+    """load_cubemap on six procedural JPEG faces: a decode, then the memo;
+    the texels on the card against CubemapData.from_faces of the decoded
+    faces."""
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:CUBE_FACE, 0:CUBE_FACE]
+    with tempfile.TemporaryDirectory() as tmp:
+        for face, rel in SKYBOX_FILES.items():
+            noise = rng.integers(0, 24, (CUBE_FACE, CUBE_FACE))
+            arr = np.stack([(xx // 4 + 40 * face + noise) % 256, (yy // 4 + noise) % 256,
+                            np.full_like(xx, 60 + 30 * face)], -1).astype(np.uint8)
+            os.makedirs(os.path.join(tmp, os.path.dirname(rel)), exist_ok=True)
+            Image.fromarray(arr).save(os.path.join(tmp, rel), quality=92)
+        loads, times = [], []
+        for _ in range(2):  # the decode, then the memo
+            t = time.perf_counter()
+            loads.append(load_cubemap(tmp, device=device))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        faces = np.stack([load_image(os.path.join(tmp, SKYBOX_FILES[f])) for f in range(6)])
+        want = CubemapData.from_faces(faces, device=device)
+        for cm in loads:
+            if (cm.h, cm.w) != (CUBE_FACE, CUBE_FACE) or cm.packed.device != want.packed.device \
+                    or not torch.equal(cm.packed, want.packed):
+                raise RuntimeError("load_cubemap's texels differ from from_faces of the faces")
+        memo = sorted(skybox_cache_dir().glob("*.npz"), key=os.path.getmtime)[-1]
+        memo_bytes = memo.stat().st_size
+        memo.unlink()
+    emit("cubemap_load", faces=[6, CUBE_FACE, CUBE_FACE], decode_ms=times[0],
+         memo_ms=times[1], memo_bytes=memo_bytes)
+
+
+def film_session(render_fn, scene, camera, width, height, seed, full_passes, device, cfg):
+    """One viewer session from an invalidation: the pyramid, then
+    `full_passes` more full-res passes, each followed by the display
+    frame's resolve to uint8 and its copy to the host (the one
+    synchronisation of a pass). Returns (film, per-pass records)."""
+    film, cache, records = Film.zero(width, height, device=device), None, []
+    t_start = time.perf_counter()
+    for n, scale in enumerate(progressive_scales(cfg) + [1] * full_passes):
+        t0 = time.perf_counter()
+        film, cache, spp = render_fn(scene, camera, film, pass_seed(seed, n), scale, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        resolve_u8(film).cpu()
+        t2 = time.perf_counter()
+        records.append({"scale": scale, "spp": spp, "pass_ms": (t1 - t0) * 1e3,
+                        "resolve_copy_ms": (t2 - t1) * 1e3,
+                        "since_invalidation_ms": (t2 - t_start) * 1e3})
+    return film, records
+
+
+def phase_film_vs_plain(scenes, camera, sky) -> dict:
+    """The whole pyramid and two more full-res passes at 320x240 through
+    make_cuda_render_fn (K1, the sky cache threaded) and through the plain
+    render_pass on the card with the same seeds: the films within 1e-6,
+    and K1 launched once per sample."""
+    cfg = RenderConfig(init_scale=8)
+    render_fn = make_cuda_render_fn(cfg, sky, camera.device)
+    out = {}
+    for name in ("scene_2", "room"):
+        mk.reset_launch_counts()
+        cuda, records = film_session(render_fn, scenes[name], camera, *SMALL_FILM, 41, 2,
+                                     camera.device, cfg)
+        launches = mk.launch_counts["megakernel_fwd"]
+        plain = Film.zero(*SMALL_FILM, device=camera.device)
+        for n, r in enumerate(records):
+            plain = render_pass(scenes[name], camera, plain, pass_seed(41, n), r["scale"],
+                                cfg, sky, spp=r["spp"], device=camera.device)
+        err = float((cuda.resolve() - plain.resolve()).abs().max())
+        samples = sum(r["spp"] for r in records)
+        if err > FILM_ATOL or launches != samples or not torch.equal(cuda.weight, plain.weight):
+            raise RuntimeError(f"{name}: film vs plain max |err| {err}, K1 launches {launches} "
+                               f"for {samples} samples, weights {float(cuda.weight)} / "
+                               f"{float(plain.weight)}")
+        out[name] = {"max_abs_err": err, "launches": launches, "samples": samples,
+                     "weight": float(cuda.weight), "passes": len(records)}
+    emit("film_vs_plain", size=list(SMALL_FILM), atol=FILM_ATOL, scenes=out)
+    return out
+
+
+def phase_film_path(scenes, camera, sky) -> dict:
+    """The film at the reference's 1280x960 with the 2048^2 sky: a warm-up
+    session, then one timed session per scene, K1's launch count set to 0
+    just before and read just after; then, per scale, K1 alone (CUDA events)
+    and the host's TileJob build, the per-pass costs the pass's time
+    includes."""
+    cfg = RenderConfig(init_scale=8)
+    device = camera.device
+    render_fn = make_cuda_render_fn(cfg, sky, device)
+    for name in ("scene_2", "room"):
+        film_session(render_fn, scenes[name], camera, FILM_W, FILM_H, 7, 2, device, cfg)
+    mk.reset_launch_counts()
+    sessions = {}
+    for name in ("scene_2", "room"):
+        film, records = film_session(render_fn, scenes[name], camera, FILM_W, FILM_H, 8,
+                                     FILM_FULL_PASSES, device, cfg)
+        sessions[name] = (film, records)
+    counts = dict(mk.launch_counts)  # read right after the film path
+    report = {}
+    for name, (film, records) in sessions.items():
+        want_w = sum(r["spp"] / r["scale"] ** 2 for r in records)
+        if float(film.weight) != want_w or not torch.isfinite(film.resolve()).all():
+            raise RuntimeError(f"{name}: film weight {float(film.weight)}, expected {want_w}")
+        per_scale = {}
+        for scale in progressive_scales(cfg):
+            rs = [r for r in records if r["scale"] == scale]
+            if scale == 1:
+                rs = rs[1:]  # the first full-res pass seeds the sky cache
+            lw, lh = lowres_size(FILM_W, FILM_H, scale)
+            job = mk.make_tile_job(scenes[name], camera, lw, lh, cfg, aspect=FILM_W / FILM_H)
+            per_scale[scale] = {
+                "size": [lw, lh], "spp": rs[0]["spp"],
+                "pass_ms": statistics.median(r["pass_ms"] for r in rs),
+                "resolve_copy_ms": statistics.median(r["resolve_copy_ms"] for r in rs),
+                "k1_ms_per_sample": device_seconds(lambda i: mk.run_tiles(job, i), 20) * 1e3,
+                "tile_job_ms": time_host(lambda i: mk.make_tile_job(
+                    scenes[name], camera, lw, lh, cfg, aspect=FILM_W / FILM_H), 20),
+            }
+        first_full = next(r for r in records if r["scale"] == 1)
+        report[name] = {"per_scale": per_scale, "weight": float(film.weight),
+                        "passes": len(records),
+                        "invalidation_to_first_full_ms": first_full["since_invalidation_ms"],
+                        "session_ms": records[-1]["since_invalidation_ms"]}
+    samples = sum(r["spp"] for _, rs in sessions.values() for r in rs)
+    if counts["megakernel_fwd"] != samples:
+        raise RuntimeError(f"K1 launched {counts['megakernel_fwd']} times on the film path "
+                           f"for {samples} samples")
+    emit("film_path", size=[FILM_W, FILM_H], sky=[SKY_SIZE, SKY_SIZE],
+         full_res_spp=FULL_RES_SPP, launches=counts, scenes=report,
+         unit="ms on the host's clock up to a synchronise (medians); k1 by CUDA events")
+    return counts
+
+
+def _http(url, body=None, timeout=30):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _wait_for(cond, seconds):
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        if cond():
+            return True
+        time.sleep(0.005)
+    return cond()
+
+
+def phase_serve_path(scenes, sky) -> None:
+    """RenderService on the room at 1280x960 on the card, its HTTP server
+    in-process on 127.0.0.1:0: /healthz, five moves through POST /key and
+    their event-to-frame latencies, passes per second and rays/s, then,
+    stopped, /frame.png against the film and a checkpoint round trip."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    device = scenes["room"].device
+    svc = RenderService(scenes["room"], FILM_W, FILM_H, RenderConfig(), sky, device)
+    thread = threading.Thread(target=svc.run, daemon=True)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread.start()
+    http_thread.start()
+    try:
+        if not _wait_for(lambda: svc.passes_done > 0, 120):
+            raise RuntimeError("the service rendered no pass in 120 s")
+        status, body = _http(base + "/healthz")
+        health = json.loads(body)
+        if status != 200 or set(health) != HEALTH_KEYS or health["resolution"] != [FILM_W,
+                                                                                   FILM_H]:
+            raise RuntimeError(f"/healthz {status}: {health}")
+        for _ in range(5):
+            n = len(svc.latencies_ms)
+            pos = svc.camera.pos.clone()
+            if _http(base + "/key", b"w")[0] != 200:
+                raise RuntimeError("POST /key refused")
+            if not _wait_for(lambda: len(svc.latencies_ms) > n, 30) \
+                    or torch.equal(svc.camera.pos, pos):
+                raise RuntimeError("a POST /key w did not move the camera and publish a frame")
+        lat = list(svc.latencies_ms)[-5:]
+        _wait_for(lambda: svc.pass_i > len(svc.scales) + 4, 30)  # into the full-res passes
+        p0, t0 = svc.passes_done, time.perf_counter()
+        time.sleep(2.0)
+        rate = (svc.passes_done - p0) / (time.perf_counter() - t0)
+        stats = svc.stats()
+    finally:
+        svc.running = False
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise RuntimeError("the render thread did not stop")
+    try:
+        status, png = _http(base + "/frame.png")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "frame.png")
+            with open(path, "wb") as f:
+                f.write(png)
+            frame = read_png(path)
+            want = to_uint8(svc.film.resolve())[::-1]
+            if status != 200 or frame.shape != (FILM_H, FILM_W, 3) \
+                    or not np.array_equal(frame, want):
+                raise RuntimeError(f"/frame.png {status} {frame.shape} differs from the film")
+            svc.film_checkpoint = os.path.join(tmp, "film")
+            svc._save_film_state()
+            again = RenderService(scenes["room"], FILM_W, FILM_H, RenderConfig(), sky, device,
+                                  film_checkpoint=svc.film_checkpoint)
+            same_cam = all(torch.equal(getattr(again.camera, f), getattr(svc.camera, f))
+                           for f in ("pos", "front", "up", "yaw", "pitch"))
+            if not (torch.equal(again.film.weight, svc.film.weight) and same_cam
+                    and torch.equal(again.film.resolve(), svc.film.resolve())):
+                raise RuntimeError("the film checkpoint did not round-trip")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        http_thread.join(timeout=30)
+    emit("serve_path", size=[FILM_W, FILM_H], scene="room", healthz=health,
+         event_to_frame_ms={"median": statistics.median(lat), "max": max(lat), "all": lat},
+         passes_per_second=rate, rays_per_second=stats["rays_per_second"],
+         passes=stats["passes"], film_weight=stats["film_weight"])
+
+
+def phase_viewer_path() -> None:
+    """`python -m ray_tracing_tpu_torch --interactive` on a pseudo-terminal
+    of 56 x 192 cells (a 192x108 render, the viewer's cap) with the room:
+    frames per second over a quiet window (draws counted as they arrive),
+    then w, space and q; requires 24-bit half-block cells, the screenshot
+    and exit code 0."""
+    import fcntl
+    import pty
+    import select
+    import struct
+    import termios
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_file = os.path.join(tmp, "room.txt")
+        with open(scene_file, "w") as f:
+            f.write(ROOM_TEXT)
+        master, slave = pty.openpty()
+        # two pixel rows per cell and two lines for the HUD: the viewer's
+        # fit_terminal then renders VIEWER_W x VIEWER_H
+        fcntl.ioctl(slave, termios.TIOCSWINSZ,
+                    struct.pack("HHHH", VIEWER_H // 2 + 2, VIEWER_W, 0, 0))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        err_path = os.path.join(tmp, "stderr.txt")
+        with open(err_path, "wb") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "ray_tracing_tpu_torch", "--scene", scene_file,
+                 "--interactive", "--width", str(VIEWER_W), "--height", str(VIEWER_H)],
+                stdin=slave, stdout=slave, stderr=err, cwd=tmp, env=env)
+        os.close(slave)
+        out = bytearray()
+        end = time.perf_counter() + 150
+
+        def pump(until, seconds):
+            stop = min(end, time.perf_counter() + seconds)
+            while time.perf_counter() < stop and proc.poll() is None and not until():
+                if select.select([master], [], [], 0.05)[0]:
+                    try:
+                        out.extend(os.read(master, 1 << 20))
+                    except OSError:
+                        return
+
+        def stderr_has(text):
+            with open(err_path, "rb") as f:
+                return text in f.read()
+
+        try:
+            pump(lambda: out.count(b"\x1b[H") >= 3, 120)  # started, warm
+            if proc.poll() is not None:
+                with open(err_path, "r", errors="replace") as f:
+                    raise RuntimeError(f"the viewer exited early ({proc.returncode}):\n"
+                                       f"{f.read()[-2000:]}")
+            n0, t0 = out.count(b"\x1b[H"), time.perf_counter()
+            pump(lambda: False, 3.0)
+            fps = (out.count(b"\x1b[H") - n0) / (time.perf_counter() - t0)
+            for key, done in ((b"w", None), (b" ", b"Took screenshot!")):
+                n = out.count(b"\x1b[H")
+                os.write(master, key)
+                pump(lambda: (out.count(b"\x1b[H") >= n + 2
+                              and (done is None or stderr_has(done))), 30)
+            os.write(master, b"q")
+            rc = proc.wait(timeout=max(end - time.perf_counter(), 5))
+            pump(lambda: False, 0.2)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            os.close(master)
+        with open(err_path, "r", errors="replace") as f:
+            err_text = f.read()
+        shot = os.path.join(tmp, "screenshot_0.png")
+        size = png_size(shot) if os.path.exists(shot) else None
+        if rc != 0 or b"\x1b[38;2;" not in out or "▀".encode() not in out \
+                or "Took screenshot!" not in err_text or size != (VIEWER_W, VIEWER_H, 8, 2):
+            raise RuntimeError(f"viewer: rc {rc}, screenshot {size}, stderr:\n{err_text[-2000:]}")
+    emit("viewer_path", size=[VIEWER_W, VIEWER_H], scene="room", frames_per_second=fps,
+         frames=out.count(b"\x1b[H"), stdout_bytes=len(out))
+
+
 def with_leaves(scene, camera):
     """(scene, camera, leaves) with every optimisable tensor a fresh leaf."""
     s = {n: getattr(scene, n).detach().clone().requires_grad_() for n in SCENE_PARAM_FIELDS}
@@ -1655,7 +2036,7 @@ def trace_fields(kname: str, ptxas: dict, scenes, at_full, dev: dict, cfg) -> di
 
 
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  timing, checks, bench_res, sky_res, ptxas, dev) -> None:
+                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev) -> None:
     cfg = RenderConfig()
     rows = []
     # the census of the plain estimator (utils/flops.py, every lane of every
@@ -1702,7 +2083,8 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
             # the serving path for the forward, the training path for the
             # recording forward, whose planes the backward consumes
             "launches": train_counts[kname] if record else counts[kname],
-            "launches_by_path": {"serving": counts[kname], "training": train_counts[kname]},
+            "launches_by_path": {"serving": counts[kname], "training": train_counts[kname],
+                                 "film": film_counts[kname]},
             "max_abs_err": max(p["max_abs_err"] for p in per_scene.values()),
             "max_share_off": max(p["max_share_off"] for p in per_scene.values()),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
@@ -1953,6 +2335,12 @@ def main() -> int:
     checks = phase_peak_and_gather_vs_plain(scenes, camera, sky)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
+    phase_native()
+    phase_cubemap_load(device)
+    phase_film_vs_plain(scenes, camera, sky)
+    film_counts = phase_film_path(scenes, camera, sky)
+    phase_serve_path(scenes, sky)
+    phase_viewer_path()
     train_counts, _ = phase_train_path(scenes, camera, sky)
     bench_res = phase_bench_path(scenes, camera, sky)
     sky_res = phase_sky_gather(scenes, camera, sky)
@@ -1961,7 +2349,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  timing, checks, bench_res, sky_res, ptxas, dev)
+                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

@@ -6,13 +6,16 @@ package imports torch and numpy and nothing of JAX. Sub-packages carry the
 names of their counterparts:
 
     ops/       vector math, intersections, cubemap, random numbers
-    scene/     scene tensors + DSL parser + built-in scenes
-    render/    camera, the plain PyTorch renderer, soft silhouettes
+    scene/     scene tensors + DSL parser (Python and native) + built-in scenes
+    render/    camera, the plain PyTorch renderer, soft silhouettes, the
+               progressive film
     kernels/   the CUDA megakernels, forward and backward (csrc/), their
                build, their wrappers and the autograd boundary
-    diff/      finite differences, the train step and fit
-    io/        PNG output
-    apps/      command line (render) and the invert app (fit)
+    native/    the C++ runtime layer (parser, PNG writer, event queue)
+    diff/      finite differences, the train step and fit, checkpoints
+    io/        skybox loading, PNG output, screenshots
+    apps/      command line (render, terminal viewer), the HTTP render
+               service and the invert app (fit)
     compat.py  scenes, cameras, cubemaps, parameters and cotangents from
                numpy arrays, gradients back
 

@@ -1,11 +1,21 @@
-"""Command line of the port: offline rendering to a PNG.
+"""Command line of the port: an offline render to a PNG, or the interactive
+terminal viewer.
 
     python -m ray_tracing_tpu_torch --scene scene.txt --output out.png
+    python -m ray_tracing_tpu_torch --scene scene.txt --interactive
 
-Counterpart of ``ray_tracing_tpu/apps/cli.py``, offline mode. The render
-runs on the card through the CUDA megakernel; ``--device cpu`` runs the
-plain PyTorch estimator on the CPU. Nothing falls back on its own: without a
-card, and without ``--device cpu``, the command fails.
+Counterpart of ``ray_tracing_tpu/apps/cli.py``. The reference's flags keep
+their meaning: --scene, --init-scale {1,2,4,8,16} (where the progressive
+pyramid starts) and --threads, accepted for compatibility: the reference's
+worker threads became device sharding, which waits for the port's
+``parallel/``, so with one card it caps nothing. --passes is accepted as
+the JAX package accepts it; neither reads it yet.
+
+The render runs on the card through the CUDA megakernel (K1); ``--device
+cpu`` runs the plain PyTorch estimator on the CPU. Nothing falls back on
+its own: without a card, and without ``--device cpu``, the command fails.
+Without --assets (a directory holding skybox/<face>.jpg) the sky is a
+synthetic 2048^2 checkerboard cubemap; --no-skybox makes it constant.
 """
 
 from __future__ import annotations
@@ -13,23 +23,81 @@ from __future__ import annotations
 import argparse
 import sys
 
+# Samples of a full-res pass of the viewer and the server. More than one
+# per pass lets the sky cache serve the pass's samples after the first;
+# the pyramid's passes take one.
+FULL_RES_SPP = 4
+
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="raytrace-torch",
-        description="Path tracer on PyTorch/CUDA (offline render to PNG)",
+        description="Path tracer on PyTorch/CUDA (offline render or terminal viewer)",
     )
     p.add_argument("--scene", required=True, help="scene DSL file")
+    p.add_argument("--threads", type=int, default=None,
+                   help="compatibility flag (reference: worker threads); caps nothing "
+                        "on one card")
+    p.add_argument("--init-scale", type=int, default=8, choices=[1, 2, 4, 8, 16])
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=960)
-    p.add_argument("--spp", type=int, default=16, help="samples per pixel")
+    p.add_argument("--spp", type=int, default=16, help="samples per pixel (offline mode)")
+    p.add_argument("--passes", type=int, default=4,
+                   help="full-res passes (interactive; accepted, not read yet)")
+    p.add_argument("--output", default=None, help="render to this PNG and exit")
+    p.add_argument("--interactive", action="store_true", help="terminal viewer")
+    p.add_argument("--no-skybox", action="store_true", help="constant sky")
+    p.add_argument("--assets", default=None,
+                   help="skybox root (skybox/right.jpg, ...); default: a checkerboard sky")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--output", default="render.png", help="PNG file to write")
-    p.add_argument("--no-skybox", action="store_true",
-                   help="constant sky instead of the checkerboard cubemap")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda: the hand-written megakernel; cpu: plain PyTorch ops")
     return p
+
+
+def load_sky(no_skybox: bool, assets, device):
+    """The sky of the command line and the server: constant with
+    no_skybox, the skybox under `assets` when it is given and loads, the
+    checkerboard cubemap otherwise."""
+    from ray_tracing_tpu_torch.io.image import load_cubemap
+    from ray_tracing_tpu_torch.ops.cubemap import checker_sky, constant_sky
+
+    if no_skybox:
+        return constant_sky((0.6, 0.7, 0.9), device=device)
+    if assets is not None:
+        try:
+            return load_cubemap(assets, device=device)
+        except OSError as e:
+            print(f"Couldn't load cubemap ({e}); using the checkerboard sky",
+                  file=sys.stderr)
+    return checker_sky(2048, device=device)
+
+
+def make_cuda_render_fn(config, cubemap, device=None):
+    """The pass of the viewer and the server, through render_pass_cuda (K1
+    on the card): render_fn(scene, camera, film, seed, scale, sky_cache) ->
+    (film, sky_cache, spp). Pyramid passes take one sample and hand the
+    cache through untouched (their planes have other shapes); full-res
+    passes take FULL_RES_SPP samples and thread the cache from pass to pass
+    at the fixed camera. device=None means the card; on "cpu" the passes
+    run the kernel's plain version."""
+    from ray_tracing_tpu_torch.device import resolve_device
+    from ray_tracing_tpu_torch.render.film import render_pass_cuda
+
+    device = resolve_device(device)
+    cubemap = cubemap.to(device)
+
+    def render_fn(scene, camera, film, seed, scale, sky_cache=None):
+        if scale != 1:
+            film = render_pass_cuda(scene, camera, film, seed, scale, config, cubemap,
+                                    spp=1, device=device)
+            return film, sky_cache, 1
+        film, cache = render_pass_cuda(scene, camera, film, seed, 1, config, cubemap,
+                                       spp=FULL_RES_SPP, sky_cache=sky_cache,
+                                       return_sky_cache=True, device=device)
+        return film, cache, FULL_RES_SPP
+
+    return render_fn
 
 
 def main(argv=None):
@@ -40,7 +108,6 @@ def main(argv=None):
     from ray_tracing_tpu_torch.device import resolve_device
     from ray_tracing_tpu_torch.io.image import save_png
     from ray_tracing_tpu_torch.kernels.megakernel import render_image_cuda
-    from ray_tracing_tpu_torch.ops.cubemap import checker_sky, constant_sky
     from ray_tracing_tpu_torch.render.camera import Camera
     from ray_tracing_tpu_torch.render.integrator import render_image
     from ray_tracing_tpu_torch.scene.parser import SceneParseError, parse_scene_file
@@ -54,21 +121,30 @@ def main(argv=None):
         return 1
     print("Scene parsed", file=sys.stderr)
 
-    if args.no_skybox:
-        cubemap = constant_sky((0.6, 0.7, 0.9), device=device)
-    else:
-        print("No skybox images ship with the package; using a synthetic "
-              "checkerboard cubemap", file=sys.stderr)
-        cubemap = checker_sky(2048, device=device)
+    cubemap = load_sky(args.no_skybox, args.assets, device)
     print("Cubemap loaded", file=sys.stderr)
+    config = RenderConfig(init_scale=args.init_scale)
+    camera = Camera.default(device)
 
-    render = render_image_cuda if device.type == "cuda" else render_image
-    img = render(
-        scene, Camera.default(device), args.width, args.height, args.seed,
-        spp=args.spp, config=RenderConfig(), cubemap=cubemap, device=device,
-    )
-    save_png(img, args.output)
-    print(f"Wrote {args.output}", file=sys.stderr)
+    if args.output or not args.interactive:
+        # offline render (the reference has none: screenshots only)
+        render = render_image_cuda if device.type == "cuda" else render_image
+        img = render(scene, camera, args.width, args.height, args.seed, spp=args.spp,
+                     config=config, cubemap=cubemap, device=device)
+        out = args.output or "render.png"
+        save_png(img, out)
+        print(f"Wrote {out}", file=sys.stderr)
+        return 0
+
+    from ray_tracing_tpu_torch.apps.viewer import Viewer, run_interactive
+
+    # terminal cells, at most 192 x 108 pixels; run_interactive fits the
+    # render to the terminal every frame, as the reference reallocates its
+    # buffers on a window resize (src/main.c:416-448)
+    viewer = Viewer(scene, camera, min(args.width, 192), min(args.height, 108), config,
+                    make_cuda_render_fn(config, cubemap, device))
+    print("Workers started (device render loop)", file=sys.stderr)
+    run_interactive(viewer, auto_resize=True)
     return 0
 
 

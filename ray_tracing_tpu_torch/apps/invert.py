@@ -4,14 +4,14 @@
         --fields p0,albedo --steps 150 --width 96 --height 64
 
 Counterpart of ``ray_tracing_tpu/apps/invert.py``. The scene is rendered as
-the ground truth, the chosen fields are perturbed, and Adam pulls them back
-through the differentiable renderer; the loss and the per-field errors are
-printed on stderr. On the card the forward of every sample is the recording
+the ground truth (or ``--target`` names an image to fit), the chosen fields
+are perturbed, and Adam pulls them back through the differentiable
+renderer; the loss and the per-field errors are printed on stderr. On the card the forward of every sample is the recording
 CUDA kernel and the gradient comes from the backward CUDA kernel;
 ``--device cpu`` runs their plain PyTorch versions. Nothing falls back on
 its own: without a card, and without ``--device cpu``, the command fails.
-A target image file, checkpoints and the coarse-to-fine schedule of the JAX
-app are not ported yet, so their flags do not exist here.
+Checkpoints and the coarse-to-fine schedule of the JAX app are not ported
+yet, so their flags do not exist here.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ def build_parser():
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--scene", required=True, help="scene DSL file")
     p.add_argument("--fields", default="p0", help="comma list of Scene fields to recover")
+    p.add_argument("--target", default=None, help="target image (default: a self-render)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=2e-2)
     p.add_argument("--width", type=int, default=96)
@@ -39,6 +40,25 @@ def build_parser():
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda: the hand-written kernels; cpu: plain PyTorch ops")
     return p
+
+
+def load_target(path, width: int, height: int, device):
+    """A target image as (height, width, 3) float32 in [0, 1] on `device`:
+    decoded, resized with PIL when its size differs, and flipped by rows:
+    PNGs are written flipped for display (io/image.py::save_png), and
+    without the flip back the fit would chase a mirrored target."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_tpu_torch.io.image import load_image
+
+    target = np.asarray(load_image(path), np.float32) / 255.0
+    if target.shape[:2] != (height, width):
+        from PIL import Image
+
+        target = np.asarray(Image.fromarray((target * 255).astype(np.uint8)).resize(
+            (width, height)), np.float32) / 255.0
+    return torch.from_numpy(target[::-1].copy()).to(device)
 
 
 def main(argv=None):
@@ -75,7 +95,10 @@ def main(argv=None):
             return render_image_cuda(s, camera, args.width, args.height, seed, spp=args.spp,
                                      config=config, cubemap=cubemap, device=device)
 
-    target = render(scene, args.seed + 99)
+    if args.target:
+        target = load_target(args.target, args.width, args.height, device)
+    else:
+        target = render(scene, args.seed + 99)
 
     # perturb the chosen fields, from a seeded generator on the host
     gen = torch.Generator().manual_seed(args.seed)

@@ -79,9 +79,8 @@ class RenderConfig:
     sky_sparse_gather: bool = False
     sky_sparse_budget_frac: float = 0.125
 
-    # Belongs to the progressive viewer, which a later slice of the port
-    # brings over; kept so that configurations stay interchangeable between
-    # the two packages.
+    # Where the progressive pyramid starts (render/film.py::
+    # progressive_scales; the reference's --init-scale).
     init_scale: int = 8
 
     def replace(self, **kw) -> "RenderConfig":

@@ -7,7 +7,8 @@ estimator serves both of the port's renderers: ``render_image`` here and
 random numbers, the sky lookup and the compose step, and differ only in
 whether a sample's ten planes come from ``tile_physics`` in PyTorch or from
 the CUDA kernel. This is the CPU path (``--device cpu`` of the CLI) and what
-the kernel is held against.
+the kernel is held against. ``render_pixels`` is the reference's pixel()
+at arbitrary screen coordinates through the same estimator.
 
 ``soft_silhouette_composite`` (training only; ``config.soft_silhouette_temp``)
 lives here too, as in the JAX package: plain PyTorch outside any kernel,
@@ -21,9 +22,14 @@ import torch
 from ray_tracing_tpu_torch.config import RenderConfig, DEFAULT_CONFIG
 from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.kernels.megakernel import (
+    DirectTracer,
+    SceneView,
+    _wrap_i32,
+    compose,
     make_tile_job,
     render_frame,
     run_tiles_plain,
+    tile_physics,
 )
 from ray_tracing_tpu_torch.ops.cubemap import CubemapData, constant_sky, sample_cubemap
 from ray_tracing_tpu_torch.ops.intersect import (
@@ -35,7 +41,8 @@ from ray_tracing_tpu_torch.ops.intersect import (
     trace,
 )
 from ray_tracing_tpu_torch.ops.vec import Vec3
-from ray_tracing_tpu_torch.render.camera import Camera
+from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws
+from ray_tracing_tpu_torch.render.camera import Camera, camera_pack
 from ray_tracing_tpu_torch.scene.types import Scene
 
 
@@ -55,6 +62,33 @@ def render_image(scene: Scene, camera: Camera, width: int, height: int,
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
     return render_frame(job, run_tiles_plain, seed, spp, cubemap.to(device), row0)[0]
+
+
+def render_pixels(scene: Scene, camera: Camera, u, v, aspect_ratio: float, seed: int = 0,
+                  config: RenderConfig = DEFAULT_CONFIG,
+                  cubemap: CubemapData | None = None, device=None) -> Vec3:
+    """pixel() for arbitrary screen coordinates (src/main.c:131-272): one
+    sample per entry of u and v (of one shape), through the plain estimator,
+    composed with the sky. Entry i draws from `seed` and its flat index i,
+    as pixel i of a frame does, so the pixel grid of a frame renders
+    render_image's first sample (without pixel jitter, which this does not
+    apply). device=None means the card."""
+    device = resolve_device(device)
+    if cubemap is None:
+        cubemap = constant_sky(device=device)
+    u = torch.as_tensor(u, dtype=torch.float32, device=device)
+    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    shape = tuple(u.shape)
+    scene = scene.to(device)
+    light_index = scene.light_index if config.shadow_samples > 0 else -1
+    view = SceneView(scene.packed_rows(), scene.obj_type, light_index,
+                     getattr(scene, "emissive", None))
+    ns = config.shadow_samples if light_index >= 0 else 0
+    gpix = torch.arange(u.numel(), dtype=torch.int64, device=device).reshape(shape)
+    draws = PhiloxDraws(_wrap_i32(seed), gpix, config, ns)
+    planes = tile_physics(view, camera_pack(camera.to(device), aspect_ratio, config), u, v,
+                          draws, config, shape, tracer=DirectTracer(view))
+    return compose(torch.stack(planes), cubemap.to(device), config)
 
 
 def _soft_slab_coverage(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, temp: float):

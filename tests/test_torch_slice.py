@@ -157,8 +157,8 @@ def test_cli_reports_parse_error_line(tmp_path, capsys):
                "--device", "cpu"])
     assert rc != 0 and not (tmp_path / "x.png").exists()
     assert "(line 3)" in capsys.readouterr().err
-    with pytest.raises(SystemExit):  # flags of later slices are refused
-        main(["--scene", str(scene_file), "--interactive"])
+    with pytest.raises(SystemExit):  # a scale the reference refuses is refused
+        main(["--scene", str(scene_file), "--init-scale", "3"])
 
 
 def test_cli_device_alone_selects_the_renderer(tmp_path):
@@ -225,10 +225,42 @@ def test_entry_points_raise_without_device_argument(no_card, tmp_path):
         main(["--scene", str(scene_file), "--output", str(tmp_path / "x.png")])
     assert not (tmp_path / "x.png").exists()
 
+    # the interactive frame path: the film, its passes, the viewer's and the
+    # server's render function, the server, the CLI's viewer
+    from ray_tracing_tpu_torch.apps.cli import make_cuda_render_fn
+    from ray_tracing_tpu_torch.apps.serve import RenderService
+    from ray_tracing_tpu_torch.diff.checkpoint import restore_film, save_film
+    from ray_tracing_tpu_torch.io.image import load_cubemap
+    from ray_tracing_tpu_torch.render.film import Film, render_pass, render_pass_cuda
+    from ray_tracing_tpu_torch.scene.native import parse_scene_string_native
+
+    sky = tcm.constant_sky((0.1, 0.2, 0.3), device="cpu")
+    film = Film.zero(8, 6, device="cpu")
+    save_film(str(tmp_path / "film"), film)
+    for make in (
+        lambda: Film.zero(8, 6),
+        lambda: render_pass(scene, cam, film, 0, 2, cubemap=sky),
+        lambda: render_pass_cuda(scene, cam, film, 0, 2, cubemap=sky),
+        lambda: render_pass_cuda(scene, cam, film, 0, 1, cubemap=sky, spp=4,
+                                 return_sky_cache=True),
+        lambda: make_cuda_render_fn(TCfg(), sky),
+        lambda: RenderService(scene, 8, 6, TCfg(), sky),
+        lambda: parse_scene_string_native(SCENE_2_TEXT),
+        lambda: restore_film(str(tmp_path / "film")),
+        lambda: load_cubemap(tmp_path / "no_assets"),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--scene", str(scene_file), "--interactive"])
+
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """(f) checked in a fresh interpreter, after importing the package and
-    every module of it, and after the CLI's main."""
+    every module of it, after the CLI's main, and after running the
+    interactive frame path's modules (native, scene.native, render.film,
+    diff.checkpoint, apps.viewer, apps.serve), whose imports are partly
+    made inside their functions."""
     scene_file = tmp_path / "scene.txt"
     scene_file.write_text(SCENE_2_TEXT)
     code = f"""
@@ -237,9 +269,33 @@ import ray_tracing_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
-from ray_tracing_tpu_torch.apps.cli import main
+from ray_tracing_tpu_torch.apps.cli import main, make_cuda_render_fn
 rc = main(["--scene", {str(scene_file)!r}, "--width", "16", "--height", "12", "--spp", "1",
            "--output", {str(tmp_path / 'o.png')!r}, "--no-skybox", "--device", "cpu"])
+# the modules of the interactive frame path, imported by name and run
+import io
+from ray_tracing_tpu_torch import native
+from ray_tracing_tpu_torch.apps.serve import RenderService
+from ray_tracing_tpu_torch.apps.viewer import Viewer
+from ray_tracing_tpu_torch.config import RenderConfig
+from ray_tracing_tpu_torch.diff.checkpoint import restore_film, save_film
+from ray_tracing_tpu_torch.io.image import save_png
+from ray_tracing_tpu_torch.ops.cubemap import constant_sky
+from ray_tracing_tpu_torch.render.camera import Camera
+from ray_tracing_tpu_torch.render.film import render_progressive
+from ray_tracing_tpu_torch.scene.native import parse_scene_string_native
+assert native.lib() is not None
+scene = parse_scene_string_native("sphere center {{3 3 3}} radius 1", device="cpu")
+cfg, sky = RenderConfig(bounces=1, shadow_samples=1, init_scale=2), constant_sky(device="cpu")
+film = render_progressive(scene, Camera.default("cpu"), 8, 6, 0, 2, cfg, sky, device="cpu")
+save_film({str(tmp_path / 'film')!r}, film)
+assert restore_film({str(tmp_path / 'film')!r}, device="cpu").resolve().equal(film.resolve())
+save_png(film.resolve(), {str(tmp_path / 'f.png')!r})
+v = Viewer(scene, Camera.default("cpu"), 8, 6, cfg, make_cuda_render_fn(cfg, sky, "cpu"),
+           out=io.StringIO())
+v.step(0); v.step(1); v.draw()
+svc = RenderService(scene, 8, 6, cfg, sky, device="cpu")
+svc.step(); svc.snapshot_png()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "ray_tracing_tpu"
              or m.startswith("ray_tracing_tpu."))
