@@ -16,11 +16,16 @@ pass; the HTTP render service on the room, in-process; the terminal viewer
 under a pseudo-terminal), then drives the training path at 1920x1080 (the
 gradient of a frame's sum, five steps of `fit` in fetch and in direct mode,
 a 100-sample gradient past the fetch budget, which runs "replay", the
-invert app), the measurement path (the port's bench, whose JSON line it
-prints on a line of its own, and the gather probe with the sparse sky cache
-on and off) and times the kernels. Every phase prints one JSON line with
-the seconds it took (two to three minutes in all on an H100, the kernels'
-build included); any phase that fails raises and the run exits non-zero.
+invert app), the sharded paths of parallel/ (a frame and a train step on
+meshes of virtual cells of the card against the one-device ones, two
+processes on the card through gloo, fit's checkpoints and resume, the
+invert app's coarse-to-fine schedule and resume, the pose recovery and the
+sharded fly-through, entry.dryrun_multichip), the measurement path (the
+port's bench, whose JSON line it prints on a line of its own, and the
+gather probe with the sparse sky cache on and off) and times the kernels.
+Every phase prints one JSON line with the seconds it took (three to four
+minutes in all on an H100, the kernels' build included); any phase that
+fails raises and the run exits non-zero.
 Needs one CUDA device, nvcc and a C++ compiler; imports nothing of JAX.
 The last line of standard output is
 
@@ -40,8 +45,10 @@ variants/parent` times the parent and this checkout in turns on one card.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import re
@@ -57,16 +64,21 @@ import torch
 from ray_tracing_tpu_torch import bench, native
 from ray_tracing_tpu_torch.apps.cli import FULL_RES_SPP, make_cuda_render_fn
 from ray_tracing_tpu_torch.apps.cli import main as cli_main
+from ray_tracing_tpu_torch.apps.flythrough import main as fly_main
 from ray_tracing_tpu_torch.apps.invert import main as invert_main
+from ray_tracing_tpu_torch.apps.pose_recovery import main as pose_main
 from ray_tracing_tpu_torch.apps.serve import RenderService, make_handler, resolve_u8
 from ray_tracing_tpu_torch.config import RenderConfig
-from ray_tracing_tpu_torch.diff.inverse import SCENE_PARAM_FIELDS, fit
+from ray_tracing_tpu_torch.diff.checkpoint import latest_step
+from ray_tracing_tpu_torch.diff.inverse import SCENE_PARAM_FIELDS, fit, make_train_step, scene_bounds
+from ray_tracing_tpu_torch.entry import dryrun_multichip
 from ray_tracing_tpu_torch.io.image import (
     SKYBOX_FILES,
     load_cubemap,
     load_image,
     png_size,
     read_png,
+    save_png,
     skybox_cache_dir,
     to_uint8,
 )
@@ -74,6 +86,9 @@ from ray_tracing_tpu_torch.kernels import build, peak
 from ray_tracing_tpu_torch.kernels import megakernel as mk
 from ray_tracing_tpu_torch.ops.cubemap import CubemapData, checker_sky
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
+from ray_tracing_tpu_torch.parallel.distributed import global_mesh, initialize, local_tile_range
+from ray_tracing_tpu_torch.parallel.mesh import make_mesh
+from ray_tracing_tpu_torch.parallel.render import render_image_sharded
 from ray_tracing_tpu_torch.render.camera import Camera, rotate
 from ray_tracing_tpu_torch.render.film import (
     Film,
@@ -85,7 +100,12 @@ from ray_tracing_tpu_torch.render.film import (
 from ray_tracing_tpu_torch.render.integrator import render_image
 from ray_tracing_tpu_torch.scene.native import parse_objects_native
 from ray_tracing_tpu_torch.scene.parser import parse_objects, parse_scene_string
-from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
+from ray_tracing_tpu_torch.scene.synthetic import (
+    POSE_SEARCH_TEXT,
+    ROOM_TEXT,
+    SCENE_2_TEXT,
+    random_objects,
+)
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, Scene
 from ray_tracing_tpu_torch.utils import flops, gather_probe
 from ray_tracing_tpu_torch.utils.timing import device_seconds
@@ -1693,6 +1713,386 @@ def run_fit(start, camera, target, sky, cfg) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
+# ---------------------------------------------------------------------------
+# The sharded paths (parallel/): mesh, sharded render and train step, two
+# processes, fit's checkpoints, the fit and fly-through apps, the dry run
+# ---------------------------------------------------------------------------
+
+# A sharded frame renders the one-device frame's samples and changes only the
+# order of the sums: it must equal render_image_cuda's within this.
+SHARD_ATOL = 1e-6
+# The sharded step's loss against the one-device step's (relative), and its
+# gradient's norm against theirs (|ratio - 1|): a sample axis of size S must
+# not scale the gradient (the JAX package's step returns S times it).
+SHARD_LOSS_RTOL = 1e-6
+NORM_RATIO_TOL = 1e-3
+# The sharded steps train albedo and p0 under fit's configuration: the
+# bilinear sky and the soft silhouettes give p0 a gradient (with the default
+# nearest sky and hard edges it has none)
+SHARD_CFG = RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08)
+RESUME_STEPS, RESUME_EVERY = 10, 5
+RESUME_SPP = 2
+# a resumed fit's losses against an uninterrupted fit's: within this share
+# of each loss, or four times the spread of two uninterrupted fits (the
+# backward kernels sum with float atomics), whichever is larger
+RESUME_RTOL = 1e-4
+FLY_FRAMES = 24
+TWO_PROCESS_TIMEOUT = 300
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return dict(mk.launch_counts)
+
+
+def require_launches(counts: dict, names, path: str) -> None:
+    for k in names:
+        if counts[k] < 1:
+            raise RuntimeError(f"kernel {k} was not launched on the {path} path")
+
+
+def phase_sharded_render(scenes, camera, sky) -> dict:
+    """Both scenes at 1920x1080, 8 spp, on a 4x2 mesh of virtual cells of
+    the card, against render_image_cuda of the same seed."""
+    cfg = RenderConfig()
+    device = camera.device
+    mesh = make_mesh(4, 2, devices=[device] * 8)
+    n_tiles = mesh.shape["tile"]
+    report = {}
+    with torch.no_grad():
+        one = {n: mk.render_image_cuda(scenes[n], camera, WIDTH, HEIGHT, seed=3, spp=SPP,
+                                       config=cfg, cubemap=sky) for n in ("scene_2", "room")}
+        mk.reset_launch_counts()
+        got = {n: render_image_sharded(scenes[n], camera, WIDTH, HEIGHT, 3, mesh, spp=SPP,
+                                       config=cfg, cubemap=sky) for n in ("scene_2", "room")}
+        counts = read_counts()
+        want = {**dict.fromkeys(counts, 0), "megakernel_fwd": 2 * n_tiles * SPP}
+        if counts != want:
+            raise RuntimeError(f"the sharded frames launched {counts}, expected {want}")
+        for n in ("scene_2", "room"):
+            err = float((got[n] - one[n]).abs().max())
+            if tuple(got[n].shape) != (HEIGHT, WIDTH, 3) or not err <= SHARD_ATOL:
+                raise RuntimeError(f"{n}: sharded frame {tuple(got[n].shape)} differs from the "
+                                   f"one-device frame by {err}")
+            report[n] = {
+                "max_abs_err": err, "mean": float(got[n].mean()),
+                "sharded_ms": time_host(lambda i, n=n: render_image_sharded(
+                    scenes[n], camera, WIDTH, HEIGHT, 3, mesh, spp=SPP, config=cfg,
+                    cubemap=sky), 5),
+                "one_device_ms": time_host(lambda i, n=n: mk.render_image_cuda(
+                    scenes[n], camera, WIDTH, HEIGHT, seed=3, spp=SPP, config=cfg,
+                    cubemap=sky), 5)}
+    emit("sharded_render", size=[WIDTH, HEIGHT], spp=SPP, mesh=mesh.shape, launches=counts,
+         atol=SHARD_ATOL, scenes=report)
+    return counts
+
+
+def perturbed_room(room):
+    gen = torch.Generator().manual_seed(0)
+    noise_a = 0.2 * torch.randn(room.albedo.shape, generator=gen)
+    noise_p = 0.05 * torch.randn(room.p0.shape, generator=gen)
+    return dataclasses.replace(
+        room, albedo=(room.albedo + noise_a.to(room.device)).clamp(0.05, 1.0),
+        p0=room.p0 + noise_p.to(room.device))
+
+
+def sharded_step(start, camera, sky, target, mesh, seed: int, spp: int = SPP, times: int = 0):
+    """One make_train_step over `mesh` (SHARD_CFG) with the leaves albedo and
+    p0 and a zero learning rate: (loss, {leaf: gradient}, launches, [ms of `times`
+    more steps])."""
+    leaves = {f: getattr(start, f).detach().clone().requires_grad_() for f in ("albedo", "p0")}
+    opt = torch.optim.SGD(list(leaves.values()), lr=0.0)
+    step = make_train_step(start, camera, opt, WIDTH, HEIGHT, spp=spp, config=SHARD_CFG,
+                           cubemap=sky, device=camera.device, mesh=mesh)
+    params = {"scene": leaves, "camera": {}}
+    before = read_counts()
+    loss = float(step(params, target, seed))
+    counts = {k: v - before[k] for k, v in read_counts().items()}
+    grads = {f: x.grad.detach().clone() for f, x in leaves.items()}
+    ms = []
+    for _ in range(times):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, target, seed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return loss, grads, counts, ms
+
+
+def compare_steps(one, sharded, what: str) -> dict:
+    """The sharded step's loss and gradient against the one-device step's;
+    raises outside SHARD_LOSS_RTOL, gradient_agreement's backward tolerance
+    (BWD_ROWS_*) or NORM_RATIO_TOL."""
+    (l0, g0), (l1, g1) = one, sharded
+    if not abs(l1 - l0) <= SHARD_LOSS_RTOL * abs(l0):
+        raise RuntimeError(f"{what}: loss {l1} against the one-device step's {l0}")
+    norm0 = float(torch.sqrt(sum((g ** 2).sum() for g in g0.values())))
+    norm1 = float(torch.sqrt(sum((g ** 2).sum() for g in g1.values())))
+    ratio = norm1 / norm0
+    if not abs(ratio - 1.0) <= NORM_RATIO_TOL:
+        raise RuntimeError(f"{what}: gradient norm {ratio} times the one-device gradient's")
+    if not all(float(g.abs().max()) > 0 for g in g0.values()):
+        raise RuntimeError(f"{what}: a leaf has no gradient to compare")
+    worst = {f: gradient_agreement(g1[f], g0[f], BWD_ROWS_RTOL, BWD_ROWS_ATOL,
+                                   g0[f].abs().max())["worst_err_over_allowed"] for f in g0}
+    return {"loss": l1, "one_device_loss": l0, "loss_rel_err": abs(l1 - l0) / abs(l0),
+            "grad_norm_ratio": ratio, "worst_err_over_allowed_by_leaf": worst}
+
+
+def phase_sharded_train(scenes, camera, sky) -> dict:
+    """One make_train_step on the room at 1920x1080, 8 spp: mesh (2, 2) of
+    virtual cells against mesh None, the same seed."""
+    room = scenes["room"]
+    with torch.no_grad():
+        target = mk.render_image_cuda(room, camera, WIDTH, HEIGHT, seed=99, spp=SPP,
+                                      config=SHARD_CFG, cubemap=sky)
+    start = perturbed_room(room)
+    mesh = make_mesh(2, 2, devices=[camera.device] * 4)
+    l0, g0, c0, ms0 = sharded_step(start, camera, sky, target, None, 5, times=3)
+    l1, g1, c1, ms1 = sharded_step(start, camera, sky, target, mesh, 5, times=3)
+    for counts, tiles in ((c0, 1), (c1, mesh.shape["tile"])):
+        want = {**dict.fromkeys(counts, 0), "megakernel_fwd_record": tiles * SPP,
+                "megakernel_bwd_fetch": tiles * SPP}
+        if counts != want:
+            raise RuntimeError(f"a train step over {tiles} tiles launched {counts}")
+    report = compare_steps((l0, g0), (l1, g1), "sharded_train")
+    emit("sharded_train", size=[WIDTH, HEIGHT], spp=SPP, mesh=mesh.shape, launches=c1,
+         one_device_launches=c0, step_ms=statistics.median(ms1),
+         one_device_step_ms=statistics.median(ms0), **report)
+    return c1
+
+
+def two_process_child(rank: int, store: str, device: str) -> int:
+    """One of phase two_process's processes (chip_smoke.py --two-process-child
+    RANK STORE DEVICE): gloo over a file:// store, both on DEVICE; prints one
+    JSON line."""
+    device = torch.device(device)
+    initialize(f"file://{store}", world_size=2, rank=rank, backend="gloo", device=device)
+    room = parse_scene_string(ROOM_TEXT, device=device)
+    camera = Camera.default(device)
+    sky = checker_sky(SKY_SIZE, device=device)
+    with torch.no_grad():
+        one = mk.render_image_cuda(room, camera, WIDTH, HEIGHT, seed=3, spp=SPP, cubemap=sky)
+        target = mk.render_image_cuda(room, camera, WIDTH, HEIGHT, seed=99, spp=SPP,
+                                      config=SHARD_CFG, cubemap=sky)
+    start = perturbed_room(room)
+    l0, g0, _, ms0 = sharded_step(start, camera, sky, target, None, 5, times=2)
+    out = {"rank": rank}
+    mk.reset_launch_counts()
+    # 2x2: each process owns a tile; 1x2: one tile whose samples span both
+    for cells in (2, 1):
+        mesh = global_mesh(num_samples=2, devices=[device] * cells)
+        lo, hi = local_tile_range(mesh, HEIGHT)
+        with torch.no_grad():
+            img = render_image_sharded(room, camera, WIDTH, HEIGHT, 3, mesh, spp=SPP,
+                                       cubemap=sky)
+            rows = (lo, hi) if cells == 2 else (0, HEIGHT)
+            err = float((img - one[rows[0]:rows[1]]).abs().max())
+            frame_ms = time_host(lambda i: render_image_sharded(
+                room, camera, WIDTH, HEIGHT, 3, mesh, spp=SPP, cubemap=sky), 3)
+        l1, g1, _, ms1 = sharded_step(start, camera, sky, target, mesh, 5, times=2)
+        out[f"{mesh.shape['tile']}x{mesh.shape['sample']}"] = {
+            "tile_range": [lo, hi], "rows": list(rows), "frame_max_abs_err": err,
+            "frame_ms": frame_ms, "step_ms": statistics.median(ms1),
+            **compare_steps((l0, g0), (l1, g1), f"two_process rank {rank}")}
+    out["one_device_step_ms"] = statistics.median(ms0)
+    out["launches"] = read_counts()
+    print("TWO-PROCESS " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_two_process(device) -> dict:
+    """Two processes on the one card, initialize(backend="gloo") through a
+    file:// store, global_mesh(num_samples=2): each checks its frame, its
+    rows and a train step against its own one-process computation. NCCL over
+    several cards cannot run on one card and is not measured here."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--two-process-child", str(r), store, str(device)],
+                                  cwd=here,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=TWO_PROCESS_TIMEOUT))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    res = {}
+    for p, (out, err) in zip(procs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("TWO-PROCESS ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"a two-process child exited {p.returncode}: {err[-3000:]}")
+        r = json.loads(lines[-1][len("TWO-PROCESS "):])
+        res[r["rank"]] = r
+    for rank, r in res.items():
+        want_rows = [0, HEIGHT // 2] if rank == 0 else [HEIGHT // 2, HEIGHT]
+        if r["2x2"]["tile_range"] != want_rows or r["1x2"]["tile_range"] != (
+                [0, HEIGHT] if rank == 0 else [0, 0]):
+            raise RuntimeError(f"rank {rank}: local_tile_range gave {r}")
+        for shape in ("2x2", "1x2"):
+            if not r[shape]["frame_max_abs_err"] <= SHARD_ATOL:
+                raise RuntimeError(f"rank {rank} {shape}: frame off by {r[shape]}")
+    counts = {k: res[0]["launches"][k] + res[1]["launches"][k] for k in res[0]["launches"]}
+    require_launches(counts, ("megakernel_fwd", "megakernel_fwd_record", "megakernel_bwd_fetch"),
+                     "two-process")
+    emit("two_process", size=[WIDTH, HEIGHT], spp=SPP, backend="gloo", launches=counts,
+         nccl="not measured: one card", ranks=res)
+    return counts
+
+
+def phase_fit_resume(scenes, camera, sky) -> dict:
+    """fit on the room at 1920x1080 with checkpoint_dir: RESUME_STEPS steps
+    with a checkpoint every RESUME_EVERY, then asked for twice as many,
+    against two uninterrupted runs of that many (default physics, so the
+    sky cache is threaded)."""
+    room = scenes["room"]
+    with torch.no_grad():
+        target = mk.render_image_cuda(room, camera, WIDTH, HEIGHT, seed=99, spp=SPP, cubemap=sky)
+    start = perturbed_room(room)
+    kw = dict(scene_fields=("albedo", "p0"), lr=2e-2, spp=RESUME_SPP, cubemap=sky, seed=3)
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    whole = [fit(start, camera, target, steps=2 * RESUME_STEPS, **kw)[2] for _ in range(2)]
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        _, _, first = fit(start, camera, target, steps=RESUME_STEPS, checkpoint_dir=d,
+                          checkpoint_every=RESUME_EVERY, **kw)
+        steps_saved = latest_step(d)
+        _, _, resumed = fit(start, camera, target, steps=2 * RESUME_STEPS, checkpoint_dir=d,
+                            checkpoint_every=RESUME_EVERY, **kw)
+        steps_after = latest_step(d)
+    counts = read_counts()
+    spread = max(abs(a - b) for a, b in zip(*whole))
+    err = [abs(a - b) for a, b in zip(resumed, whole[0])]
+    allowed = [max(RESUME_RTOL * abs(b), 4 * spread) for b in whole[0]]
+    if resumed[:RESUME_STEPS] != first or steps_saved != RESUME_STEPS \
+            or steps_after != 2 * RESUME_STEPS or len(resumed) != 2 * RESUME_STEPS:
+        raise RuntimeError(f"resume: {first} then {resumed}, checkpoints {steps_saved}, "
+                           f"{steps_after}")
+    if not all(e <= a for e, a in zip(err, allowed)):
+        raise RuntimeError(f"resumed losses {resumed} against uninterrupted {whole[0]}")
+    require_launches(counts, ("megakernel_fwd_record", "megakernel_bwd_fetch"), "fit_resume")
+    emit("fit_resume", size=[WIDTH, HEIGHT], spp=RESUME_SPP, launches=counts,
+         losses_first=first, losses_resumed=resumed, losses_uninterrupted=whole,
+         spread_of_two_uninterrupted=spread, max_err_resumed=max(err),
+         ms_per_step=(t1 - t0) * 1e3 / (4 * RESUME_STEPS))
+    return counts
+
+
+def run_app(main_fn, argv) -> tuple[float, str]:
+    """(seconds, stderr) of one app invocation; raises on a non-zero code.
+    The app's stderr is captured and returned."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"{main_fn.__module__} returned {rc}: {buf.getvalue()[-2000:]}")
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def phase_apps_fit(scenes, device) -> dict:
+    """invert --multiscale and invert --checkpoint-dir (resumed) on the room
+    at 1920x1080; pose_recovery at its defaults on the four-object scene
+    against a target rendered from a known pose; flythrough --sharded on a
+    4x2 mesh of virtual cells, FLY_FRAMES frames at 1920x1080, 8 spp."""
+    report = {}
+    mk.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        room_file = os.path.join(tmp, "room.txt")
+        with open(room_file, "w") as f:
+            f.write(ROOM_TEXT)
+        on = ["--device", device.type]
+        big = ["--scene", room_file, "--width", str(WIDTH), "--height", str(HEIGHT),
+               "--fields", "albedo", *on]
+        secs, err = run_app(invert_main, big + ["--steps", "6", "--multiscale"])
+        report["invert_multiscale"] = {"seconds": secs, "steps": 6,
+                                       "log": [ln for ln in err.splitlines()
+                                               if ln.startswith(("step", "loss", "albedo"))]}
+        ck = os.path.join(tmp, "ck")
+        s1, _ = run_app(invert_main, big + ["--steps", "4", "--checkpoint-dir", ck])
+        s2, err = run_app(invert_main, big + ["--steps", "8", "--checkpoint-dir", ck])
+        if latest_step(ck) != 8 or "step     0" in err or "step     7" not in err:
+            raise RuntimeError(f"invert --checkpoint-dir did not resume at step 4: {err[-1500:]}")
+        report["invert_checkpoint"] = {"seconds": [s1, s2], "steps": [4, 8]}
+
+        # pose recovery against a self-rendered target written flipped, as
+        # the reference's screenshots are
+        pose_file = os.path.join(tmp, "pose.txt")
+        with open(pose_file, "w") as f:
+            f.write(POSE_SEARCH_TEXT)
+        scene = parse_scene_string(POSE_SEARCH_TEXT, device=device)
+        center, half_diag = scene_bounds(scene)
+        gdir = np.array([0.55, 0.35, 0.76])
+        gpos = center + gdir / np.linalg.norm(gdir) * (1.25 * half_diag)
+        true = dataclasses.replace(Camera.default(device),
+                                   pos=torch.tensor(gpos, dtype=torch.float32, device=device),
+                                   front=torch.tensor(center - gpos, dtype=torch.float32,
+                                                      device=device))
+        with torch.no_grad():
+            target = mk.render_image_cuda(
+                scene, true, 160, 120, 5, spp=64, cubemap=checker_sky(SKY_SIZE, device=device),
+                config=RenderConfig(env_filter="bilinear", bounces=3, shadow_samples=1,
+                                    pixel_jitter=True))
+        save_png(target, os.path.join(tmp, "target.png"))
+        secs, err = run_app(pose_main, ["--scene", pose_file, "--target",
+                                        os.path.join(tmp, "target.png"),
+                                        "--out", os.path.join(tmp, "pose.png"), *on])
+        m = re.search(r"correlation vs target: ([-\d.]+) -> ([-\d.]+)", err)
+        t = re.search(r"search ([\d.]+) s, refinement ([\d.]+) s", err)
+        pos = json.loads(re.search(r"pos: (\[.*\])", err).group(1))
+        front = json.loads(re.search(r"front: (\[.*\])", err).group(1))
+        corr0, corr1 = float(m.group(1)), float(m.group(2))
+        if not corr1 > corr0:
+            raise RuntimeError(f"pose_recovery: correlation {corr0} -> {corr1}: {err[-2000:]}")
+        f_true = (center - gpos) / np.linalg.norm(center - gpos)
+        f_rec = np.asarray(front) / np.linalg.norm(front)
+        report["pose_recovery"] = {
+            "seconds": secs, "search_seconds": float(t.group(1)),
+            "refinement_seconds": float(t.group(2)), "correlation": [corr0, corr1],
+            "pos_error": float(np.linalg.norm(np.asarray(pos) - gpos)),
+            "front_error_degrees": float(np.degrees(np.arccos(np.clip(f_rec @ f_true, -1, 1)))),
+            "size": [160, 120], "out_png": png_size(os.path.join(tmp, "pose.png"))[:2]}
+
+        fly = os.path.join(tmp, "fly")
+        secs, err = run_app(fly_main, ["--scene", room_file, "--frames", str(FLY_FRAMES),
+                                       "--width", str(WIDTH), "--height", str(HEIGHT),
+                                       "--spp", str(SPP), "--out-dir", fly, "--sharded",
+                                       "--mesh", "4x2", *on])
+        frames = sorted(os.listdir(fly))
+        if len(frames) != FLY_FRAMES or png_size(os.path.join(fly, frames[-1]))[:2] != (
+                WIDTH, HEIGHT):
+            raise RuntimeError(f"flythrough wrote {frames}")
+        report["flythrough"] = {"frames": FLY_FRAMES, "seconds": secs,
+                                "frames_per_second": FLY_FRAMES / secs, "mesh": "4x2",
+                                "last_line": err.strip().splitlines()[-1]}
+    counts = read_counts()
+    require_launches(counts, ("megakernel_fwd", "megakernel_fwd_record", "megakernel_bwd_fetch"),
+                     "apps")
+    emit("apps_fit", launches=counts, **report)
+    return counts
+
+
+def phase_dryrun(device) -> dict:
+    mk.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        loss = dryrun_multichip(8, device=device)
+    counts = read_counts()
+    require_launches(counts, ("megakernel_fwd", "megakernel_fwd_record", "megakernel_bwd_fetch"),
+                     "dryrun")
+    emit("dryrun", cells=8, loss=loss, line=buf.getvalue().strip(), launches=counts)
+    return counts
+
+
 def time_launches(fn, n: int, warmup: int = 3) -> float:
     """Median milliseconds of fn(i) over n launches, by CUDA events."""
     for i in range(warmup):
@@ -2036,7 +2436,8 @@ def trace_fields(kname: str, ptxas: dict, scenes, at_full, dev: dict, cfg) -> di
 
 
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev) -> None:
+                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev,
+                  sharded_counts) -> None:
     cfg = RenderConfig()
     rows = []
     # the census of the plain estimator (utils/flops.py, every lane of every
@@ -2201,6 +2602,11 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
     })
     for row in rows:  # the share of the least time the card could take
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        # the launches of each sharded path, each counted from 0 just
+        # before its phase
+        for path, c in sharded_counts.items():
+            if row["name"] in c:
+                row.setdefault("launches_by_path", {})[path] = c[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -2312,6 +2718,8 @@ def kernel_times_in_turns(checkouts) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--two-process-child"]:  # spawned by phase two_process
+        return two_process_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2342,6 +2750,12 @@ def main() -> int:
     phase_serve_path(scenes, sky)
     phase_viewer_path()
     train_counts, _ = phase_train_path(scenes, camera, sky)
+    sharded_counts = {"sharded_render": phase_sharded_render(scenes, camera, sky),
+                      "sharded_train": phase_sharded_train(scenes, camera, sky),
+                      "two_process": phase_two_process(device),
+                      "fit_resume": phase_fit_resume(scenes, camera, sky),
+                      "apps_fit": phase_apps_fit(scenes, device),
+                      "dryrun": phase_dryrun(device)}
     bench_res = phase_bench_path(scenes, camera, sky)
     sky_res = phase_sky_gather(scenes, camera, sky)
     timing = phase_timing(scenes, camera, sky, ptxas)
@@ -2349,7 +2763,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev)
+                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev, sharded_counts)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

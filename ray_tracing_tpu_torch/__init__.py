@@ -12,10 +12,15 @@ names of their counterparts:
     kernels/   the CUDA megakernels, forward and backward (csrc/), their
                build, their wrappers and the autograd boundary
     native/    the C++ runtime layer (parser, PNG writer, event queue)
-    diff/      finite differences, the train step and fit, checkpoints
+    parallel/  the (tile, sample) mesh of cells, the sharded render, and
+               several processes through torch.distributed
+    diff/      finite differences, the train step (over a mesh), fit with
+               checkpoints and resume, fit_multiscale, the coarse pose
+               search, checkpoints
     io/        skybox loading, PNG output, screenshots
     apps/      command line (render, terminal viewer), the HTTP render
-               service and the invert app (fit)
+               service, the invert app (fit), the fly-through and the pose
+               recovery
     compat.py  scenes, cameras, cubemaps, parameters and cotangents from
                numpy arrays, gradients back
 

@@ -6,10 +6,11 @@ terminal viewer.
 
 Counterpart of ``ray_tracing_tpu/apps/cli.py``. The reference's flags keep
 their meaning: --scene, --init-scale {1,2,4,8,16} (where the progressive
-pyramid starts) and --threads, accepted for compatibility: the reference's
-worker threads became device sharding, which waits for the port's
-``parallel/``, so with one card it caps nothing. --passes is accepted as
-the JAX package accepts it; neither reads it yet.
+pyramid starts) and --threads: the reference's worker threads became device
+sharding, and --threads caps the tile axis of the offline render's mesh
+(parallel/) at min(threads, cards, 32), the largest tile count that divides
+the height; with one card it caps nothing. --passes is accepted as the JAX
+package accepts it; neither reads it yet.
 
 The render runs on the card through the CUDA megakernel (K1); ``--device
 cpu`` runs the plain PyTorch estimator on the CPU. Nothing falls back on
@@ -36,8 +37,8 @@ def build_parser():
     )
     p.add_argument("--scene", required=True, help="scene DSL file")
     p.add_argument("--threads", type=int, default=None,
-                   help="compatibility flag (reference: worker threads); caps nothing "
-                        "on one card")
+                   help="caps the tile axis of the offline render's mesh (reference: "
+                        "worker threads, <= 32)")
     p.add_argument("--init-scale", type=int, default=8, choices=[1, 2, 4, 8, 16])
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=960)
@@ -104,6 +105,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     # Heavy imports after argument parsing (fast --help).
+    import torch
+
     from ray_tracing_tpu_torch.config import RenderConfig
     from ray_tracing_tpu_torch.device import resolve_device
     from ray_tracing_tpu_torch.io.image import save_png
@@ -126,11 +129,28 @@ def main(argv=None):
     config = RenderConfig(init_scale=args.init_scale)
     camera = Camera.default(device)
 
+    # --threads caps the tile axis of the mesh (the reference caps its
+    # worker threads at 32, src/main.c:46,632-633): the rows are sharded
+    # over min(threads, cards, 32) cards
+    n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    cap = max(min(args.threads or n_avail, 32, n_avail), 1)
+    n_tiles = max(t for t in range(1, cap + 1) if args.height % t == 0)
+
     if args.output or not args.interactive:
         # offline render (the reference has none: screenshots only)
-        render = render_image_cuda if device.type == "cuda" else render_image
-        img = render(scene, camera, args.width, args.height, args.seed, spp=args.spp,
-                     config=config, cubemap=cubemap, device=device)
+        if n_tiles > 1:
+            from ray_tracing_tpu_torch.parallel.mesh import local_devices, make_mesh
+            from ray_tracing_tpu_torch.parallel.render import render_image_sharded
+
+            mesh = make_mesh(n_tiles, 1, devices=local_devices()[:n_tiles])
+            print(f"Sharding rows over {n_tiles} devices", file=sys.stderr)
+            with torch.no_grad():
+                img = render_image_sharded(scene, camera, args.width, args.height, args.seed,
+                                           mesh, spp=args.spp, config=config, cubemap=cubemap)
+        else:
+            render = render_image_cuda if device.type == "cuda" else render_image
+            img = render(scene, camera, args.width, args.height, args.seed, spp=args.spp,
+                         config=config, cubemap=cubemap, device=device)
         out = args.output or "render.png"
         save_png(img, out)
         print(f"Wrote {out}", file=sys.stderr)

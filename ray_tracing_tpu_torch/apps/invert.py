@@ -1,17 +1,23 @@
 """Inverse-rendering demo: recover scene parameters from a target image.
 
     python -m ray_tracing_tpu_torch.apps.invert --scene scene.txt \\
-        --fields p0,albedo --steps 150 --width 96 --height 64
+        --fields p0,albedo --steps 150 --width 96 --height 64 \\
+        --checkpoint-dir ckpt
 
 Counterpart of ``ray_tracing_tpu/apps/invert.py``. The scene is rendered as
 the ground truth (or ``--target`` names an image to fit), the chosen fields
 are perturbed, and Adam pulls them back through the differentiable
-renderer; the loss and the per-field errors are printed on stderr. On the card the forward of every sample is the recording
-CUDA kernel and the gradient comes from the backward CUDA kernel;
-``--device cpu`` runs their plain PyTorch versions. Nothing falls back on
-its own: without a card, and without ``--device cpu``, the command fails.
-Checkpoints and the coarse-to-fine schedule of the JAX app are not ported
-yet, so their flags do not exist here.
+renderer over a mesh of cells (parallel/); the loss and the per-field errors
+are printed on stderr. ``--mesh TxS`` sets the mesh; by default it is every
+local card, with a sample axis of 2 when their count is even (one cell with
+``--device cpu``), and the height and spp are rounded to it as the JAX app
+rounds them. ``--checkpoint-dir`` saves the fit and resumes it;
+``--multiscale`` runs the coarse-to-fine schedule (the JAX app ignores
+``--checkpoint-dir`` there; this one refuses the pair). On the card the
+forward of every sample is the recording CUDA kernel and the gradient comes
+from the backward CUDA kernel; ``--device cpu`` runs their plain PyTorch
+versions. Nothing falls back on its own: without a card, and without
+``--device cpu``, the command fails.
 """
 
 from __future__ import annotations
@@ -37,6 +43,13 @@ def build_parser():
     p.add_argument("--out", default=None, help="save the final render as a PNG")
     p.add_argument("--soft-temp", type=float, default=0.08,
                    help="soft-silhouette temperature (0 = hard visibility)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save the fit here and resume from it")
+    p.add_argument("--multiscale", action="store_true",
+                   help="coarse-to-fine schedule (recommended for geometry)")
+    p.add_argument("--mesh", default=None,
+                   help="TxS cells over the local devices (default: every card, "
+                        "2 samples when their count is even)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda: the hand-written kernels; cpu: plain PyTorch ops")
     return p
@@ -62,16 +75,20 @@ def load_target(path, width: int, height: int, device):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.multiscale and args.checkpoint_dir:
+        parser.error("--checkpoint-dir does not apply to --multiscale")
 
     import torch
 
     from ray_tracing_tpu_torch.config import RenderConfig
     from ray_tracing_tpu_torch.device import resolve_device
-    from ray_tracing_tpu_torch.diff.inverse import extract_params, fit
+    from ray_tracing_tpu_torch.diff.inverse import extract_params, fit, fit_multiscale
     from ray_tracing_tpu_torch.io.image import save_png
-    from ray_tracing_tpu_torch.kernels.megakernel import render_image_cuda
     from ray_tracing_tpu_torch.ops.cubemap import gradient_sky
+    from ray_tracing_tpu_torch.parallel.mesh import SAMPLE_AXIS, TILE_AXIS, parse_mesh
+    from ray_tracing_tpu_torch.parallel.render import render_image_sharded
     from ray_tracing_tpu_torch.render.camera import Camera
     from ray_tracing_tpu_torch.scene.parser import SceneParseError, parse_scene_file
 
@@ -90,13 +107,18 @@ def main(argv=None):
         return 1
     extract_params(scene, fields)  # rejects an unknown field before any render
 
+    mesh = parse_mesh(args.mesh, device)
+    tiles, samples = mesh.shape[TILE_AXIS], mesh.shape[SAMPLE_AXIS]
+    height = (args.height // tiles) * tiles or tiles  # rows divide over the tiles
+    spp = max(args.spp // samples, 1) * samples
+
     def render(s, seed):
         with torch.no_grad():
-            return render_image_cuda(s, camera, args.width, args.height, seed, spp=args.spp,
-                                     config=config, cubemap=cubemap, device=device)
+            return render_image_sharded(s, camera, args.width, height, seed, mesh, spp=spp,
+                                        config=config, cubemap=cubemap)
 
     if args.target:
-        target = load_target(args.target, args.width, args.height, device)
+        target = load_target(args.target, args.width, height, device)
     else:
         target = render(scene, args.seed + 99)
 
@@ -108,17 +130,27 @@ def main(argv=None):
         noise = args.perturb * torch.randn(v.shape, generator=gen)
         perturbed = dataclasses.replace(perturbed, **{f: v + noise.to(device)})
 
-    print(f"device={device} fields={fields} steps={args.steps}", file=sys.stderr)
+    print(f"device={device} mesh={mesh.shape} fields={fields} steps={args.steps}",
+          file=sys.stderr)
 
     def cb(i, loss, params):
         if i % 10 == 0 or i == args.steps - 1:
             print(f"step {i:5d}  loss {loss:.6f}", file=sys.stderr)
 
-    recovered, _, losses = fit(
-        perturbed, camera, target, scene_fields=fields, steps=args.steps, lr=args.lr,
-        width=args.width, height=args.height, spp=args.spp, config=config,
-        cubemap=cubemap, seed=args.seed + 1000, callback=cb, device=device,
-    )
+    if args.multiscale:
+        third = args.steps // 3
+        recovered, _, losses = fit_multiscale(
+            perturbed, camera, target, scene_fields=fields,
+            schedule=((4, third), (2, third), (1, third)), lr=args.lr, spp=spp,
+            config=config, cubemap=cubemap, seed=args.seed + 1000, callback=cb, mesh=mesh,
+        )
+    else:
+        recovered, _, losses = fit(
+            perturbed, camera, target, scene_fields=fields, steps=args.steps, lr=args.lr,
+            width=args.width, height=height, spp=spp, config=config, cubemap=cubemap,
+            seed=args.seed + 1000, callback=cb, mesh=mesh,
+            checkpoint_dir=args.checkpoint_dir,
+        )
 
     if losses:
         print(f"loss: {losses[0]:.6f} -> {losses[-1]:.6f}", file=sys.stderr)

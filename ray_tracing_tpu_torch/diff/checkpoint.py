@@ -8,9 +8,9 @@ strings and containers of them, no arbitrary objects. Tensors are written
 from the host and restored there; numpy arrays are stored as tensors and
 numpy scalars as Python numbers, which the restricted loader would refuse.
 
-Used by ``apps/serve.py`` (the film and the camera pose it was accumulated
-at) and ``save_film`` / ``restore_film``. ``fit``'s checkpoints come with
-the rest of ``diff/``.
+Used by ``diff/inverse.py::fit`` (the leaves, Adam's state, the step, the
+losses and the field list), ``apps/serve.py`` (the film and the camera pose
+it was accumulated at) and ``save_film`` / ``restore_film``.
 """
 
 from __future__ import annotations

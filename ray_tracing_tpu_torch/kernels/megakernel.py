@@ -1114,11 +1114,25 @@ def _soft_silhouettes(job: TileJob, rgb: Vec3, cubemap: CubemapData, row0: int) 
     return soft_silhouette_composite(view, ro0, rd0, rgb, job.config, cubemap)
 
 
+def frame_sample_seeds(seed: int, spp: int, first_sample: int = 0,
+                       frame_spp: int | None = None) -> list[int]:
+    """The seeds of samples first_sample .. first_sample + spp - 1 of a
+    frame of `frame_spp` samples (default: spp) seeded `seed`: a slice of
+    sample_seeds(seed, frame_spp). A share of a sharded frame's samples thus
+    takes the very seeds that the one-device frame gives them."""
+    frame_spp = spp if frame_spp is None else frame_spp
+    if first_sample < 0 or first_sample + spp > frame_spp:
+        raise ValueError(f"samples {first_sample}..{first_sample + spp - 1} of a "
+                         f"{frame_spp}-sample frame")
+    return sample_seeds(seed, frame_spp)[first_sample:first_sample + spp]
+
+
 def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
                  cubemap: CubemapData, row0: int = 0, sky_cached: bool = False,
-                 sky_cache=None):
+                 sky_cache=None, first_sample: int = 0, frame_spp: int | None = None):
     """((H, W, 3) image, sky cache): `spp` samples through `tiles_fn`, each
-    composed with its sky and clipped BEFORE the average. With
+    composed with its sky and clipped BEFORE the average; the samples are
+    first_sample .. of a frame of `frame_spp` (frame_sample_seeds). With
     soft_silhouette_temp > 0 the average is then blended with the soft
     primary visibility; the blend is affine in the colour and the same for
     every sample, so blending the average equals averaging the blended
@@ -1138,7 +1152,7 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
     if spp < 1:
         raise ValueError("spp must be at least 1")
     cfg = job.config
-    seeds = sample_seeds(seed, spp)
+    seeds = frame_sample_seeds(seed, spp, first_sample, frame_spp)
     use_cache = (sky_cached and sky_cache_capable(cfg, cubemap)
                  and (spp > 1 or sky_cache is not None))
     sparse = use_cache and cfg.sky_sparse_gather
@@ -1181,7 +1195,8 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
                       cubemap: CubemapData | None = None, row0: int = 0,
                       norm_height: int | None = None,
                       aspect: float | None = None, sky_cache=None,
-                      return_sky_cache: bool = False, device=None):
+                      return_sky_cache: bool = False, first_sample: int = 0,
+                      frame_spp: int | None = None, device=None):
     """Full render through the CUDA megakernel plus the sky lookup in
     PyTorch: (height, width, 3) float32 in [0, 1] on the device.
 
@@ -1190,7 +1205,9 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     `scene` or `camera` requires grad, backward() runs a backward kernel per
     sample (effective_bwd_mode says which mode, backward_kernel which
     kernel); in "fetch" each sample's forward is the recording kernel.
-    row0/norm_height/aspect as in render_tiles_cuda.
+    row0/norm_height/aspect as in render_tiles_cuda. first_sample and
+    frame_spp make the `spp` samples a share of a larger frame's
+    (frame_sample_seeds): parallel/render.py hands each mesh cell its own.
 
     sky_cache / return_sky_cache thread the sky cache across calls
     (render_frame): with return_sky_cache=True the result is (img, cache).
@@ -1212,5 +1229,6 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
     img, cache = render_frame(job, run_tiles_grad, seed, spp, cubemap.to(device), row0,
-                              sky_cached=True, sky_cache=sky_cache)
+                              sky_cached=True, sky_cache=sky_cache,
+                              first_sample=first_sample, frame_spp=frame_spp)
     return (img, cache) if return_sky_cache else img

@@ -1,5 +1,6 @@
 """Scenes that need no file: the three-sphere scene_2, a nine-object lit
-room, and seeded random scenes of any size.
+room, the four-object scene of the pose search, and seeded random scenes of
+any size.
 
 They serve the tests, the smoke script and anyone who wants a render
 without writing a scene file first.
@@ -30,6 +31,52 @@ cube origin {-1 -1 2} size {2 0.7 1} albedo    {0.9 0.8 0.2} metallic    1 rough
 sphere center {0 0 0} radius 1 albedo    {0.2 0.5 1} reflectance 1
 sphere center {0 5 0} radius 1 emission_power 10 emission_color {1 0.95 0.85}
 sphere center {2.5 -0.3 1.5} radius 0.7 albedo    {0.5 0.2 1} metallic    1 roughness 0.1
+"""
+
+# Distinctly coloured diffuse objects at distinct offsets over a dark floor
+# (tests/test_pose_search.py's scene): every viewing side sees another
+# arrangement of colours, which a mirror-symmetric scene would not give the
+# pose search (apps/pose_recovery.py).
+POSE_SEARCH_TEXT = """\
+sphere
+\temission_color {0 0 0}
+\temission_power 0
+\tmetallic       0
+\treflectance    0
+\troughness      1
+\talbedo         {0.9 0.1 0.1}
+\tcenter         {-1.5 0 0}
+\tradius         0.8
+
+cube
+\temission_color {0 0 0}
+\temission_power 0
+\tmetallic       0
+\treflectance    0
+\troughness      1
+\talbedo         {0.1 0.8 0.1}
+\torigin         {0.5 -0.6 0.4}
+\tsize           {1.2 1.2 1.2}
+
+sphere
+\temission_color {0 0 0}
+\temission_power 0
+\tmetallic       0
+\treflectance    0
+\troughness      1
+\talbedo         {0.15 0.25 0.9}
+\tcenter         {0.2 1.1 -1.3}
+\tradius         0.55
+
+cube
+\temission_color {0 0 0}
+\temission_power 0
+\tmetallic       0
+\treflectance    0
+\troughness      1
+\talbedo         {0.25 0.2 0.15}
+\torigin         {-3 -1 -3}
+\tsize           {6 0.2 6}
 """
 
 

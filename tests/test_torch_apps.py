@@ -377,3 +377,129 @@ def test_interactive_cli_under_a_pty(tmp_path):
     assert b"\x1b[38;2;" in out and "▀".encode() in out
     assert "Took screenshot" in err
     assert png_size(tmp_path / "screenshot_0.png") == (32, 24, 8, 2)
+
+
+# ---------------------------------------------------------------------------
+# The fit and fly-through apps (apps/invert.py, apps/flythrough.py,
+# apps/pose_recovery.py) with --device cpu at tiny sizes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t", [0.0, 0.7, 2.5, 6.0])
+def test_orbit_camera_equals_jax(t):
+    from ray_tracing_tpu.apps.flythrough import orbit_camera as j_orbit_camera
+    from ray_tracing_tpu.render.camera import Camera as JCamera
+
+    from ray_tracing_tpu_torch.apps.flythrough import orbit_camera
+
+    want = j_orbit_camera(JCamera.default(), t, radius=6.0, height=3.0, look_at=(0.5, 1.0, -1.0))
+    got = orbit_camera(Camera.default("cpu"), t, radius=6.0, height=3.0, look_at=(0.5, 1.0, -1.0))
+    for name in ("pos", "front", "up"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("sharded", [[], ["--sharded", "--mesh", "2x2"]], ids=["one", "sharded"])
+def test_flythrough_app_runs_on_the_cpu(tmp_path, capsys, sharded):
+    from ray_tracing_tpu_torch.apps import flythrough
+
+    scn = tmp_path / "s.txt"
+    scn.write_text(SPHERE)
+    out = tmp_path / "fly"
+    assert flythrough.main(["--scene", str(scn), "--frames", "3", "--width", "16", "--height",
+                            "8", "--spp", "2", "--out-dir", str(out), "--device", "cpu",
+                            *sharded]) == 0
+    assert sorted(p.name for p in out.iterdir()) == [f"frame_{i:04d}.png" for i in range(3)]
+    assert png_size(out / "frame_0002.png") == (16, 8, 8, 2)
+    err = capsys.readouterr().err
+    assert "frame 3/3" in err and "rays/s" in err
+    assert ("mesh={'tile': 2, 'sample': 2}" in err) == bool(sharded)
+
+
+def test_flythrough_sharded_frames_equal_the_one_device_frames(tmp_path):
+    from ray_tracing_tpu_torch.apps import flythrough
+
+    scn = tmp_path / "s.txt"
+    scn.write_text(SPHERE)
+    common = ["--scene", str(scn), "--frames", "2", "--width", "16", "--height", "8",
+              "--spp", "2", "--device", "cpu", "--assets", str(tmp_path / "none")]
+    assert flythrough.main(common + ["--out-dir", str(tmp_path / "a")]) == 0
+    assert flythrough.main(common + ["--out-dir", str(tmp_path / "b"), "--sharded",
+                                     "--mesh", "4x2"]) == 0
+    for i in range(2):
+        a = read_png(tmp_path / "a" / f"frame_{i:04d}.png").astype(int)
+        b = read_png(tmp_path / "b" / f"frame_{i:04d}.png").astype(int)
+        assert np.abs(a - b).max() <= 1  # float rounding may move a truncated byte
+
+
+def test_invert_multiscale_app_runs_on_the_cpu(tmp_path, capsys):
+    from ray_tracing_tpu_torch.apps import invert
+
+    scn = tmp_path / "s.txt"
+    scn.write_text(SPHERE)
+    assert invert.main(["--scene", str(scn), "--fields", "albedo", "--steps", "6",
+                        "--width", "32", "--height", "17", "--spp", "2", "--multiscale",
+                        "--mesh", "2x2", "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "mesh={'tile': 2, 'sample': 2}" in err and "loss: " in err
+    assert "albedo: |err| " in err
+    with pytest.raises(SystemExit):  # the JAX app ignores the pair; this one refuses it
+        invert.main(["--scene", str(scn), "--multiscale", "--checkpoint-dir", str(tmp_path)])
+
+
+def test_invert_checkpoint_dir_resumes(tmp_path, capsys):
+    from ray_tracing_tpu_torch.apps import invert
+    from ray_tracing_tpu_torch.diff.checkpoint import latest_step
+
+    scn = tmp_path / "s.txt"
+    scn.write_text(SPHERE)
+    d = tmp_path / "ck"
+    common = ["--scene", str(scn), "--fields", "albedo", "--width", "16", "--height", "8",
+              "--spp", "1", "--checkpoint-dir", str(d), "--device", "cpu"]
+    assert invert.main(common + ["--steps", "3"]) == 0
+    assert latest_step(str(d)) == 3
+    first = capsys.readouterr().err
+    assert "step     0" in first
+    assert invert.main(common + ["--steps", "5"]) == 0
+    assert latest_step(str(d)) == 5
+    resumed = capsys.readouterr().err
+    assert "step     4" in resumed and "step     0" not in resumed  # steps 3-4 only
+
+
+def test_pose_recovery_app_runs_on_the_cpu(tmp_path, capsys, monkeypatch):
+    """Against a target the port renders from a known pose and writes
+    flipped, as the reference's screenshots are; the search at a reduced
+    size (its own tests run it at the JAX tests' sizes)."""
+    import dataclasses
+    import functools
+
+    from ray_tracing_tpu_torch.apps import pose_recovery
+    from ray_tracing_tpu_torch.diff import inverse
+    from ray_tracing_tpu_torch.io.image import save_png
+    from ray_tracing_tpu_torch.kernels.megakernel import render_image_cuda
+    from ray_tracing_tpu_torch.scene.parser import parse_scene_string
+    from ray_tracing_tpu_torch.scene.synthetic import POSE_SEARCH_TEXT
+
+    scn = tmp_path / "pose.txt"
+    scn.write_text(POSE_SEARCH_TEXT)
+    scene = parse_scene_string(POSE_SEARCH_TEXT, device="cpu")
+    true = dataclasses.replace(Camera.default("cpu"), pos=torch.tensor([1.5, 1.2, 4.0]),
+                               front=torch.tensor([-0.3, -0.25, -1.0]))
+    cfg = RenderConfig(env_filter="bilinear", bounces=3, shadow_samples=1)
+    from ray_tracing_tpu_torch.ops.cubemap import checker_sky
+
+    target = render_image_cuda(scene, true, 16, 12, 1, spp=4, config=cfg,
+                               cubemap=checker_sky(2048, device="cpu"), device="cpu")
+    save_png(target, tmp_path / "target.png")
+    monkeypatch.setattr(inverse, "coarse_pose_search",
+                        functools.partial(inverse.coarse_pose_search, n_pos=2, width=8,
+                                          height=6, aa=1, spp=1))
+    assert pose_recovery.main(["--scene", str(scn), "--target", str(tmp_path / "target.png"),
+                               "--width", "16", "--height", "12", "--spp", "1", "--steps", "2",
+                               "--refine-steps", "1", "--init-pos", "1.3,1.0,4.4",
+                               "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "coarse search: top MSEs" in err and err.count("refine loss") == 4
+    assert "fine-tune loss -> " in err and "pos: [" in err and "front: [" in err
+    assert "search " in err and " s, refinement " in err
+    assert "correlation vs target: " in err and " -> " in err.split("correlation vs target: ")[1]

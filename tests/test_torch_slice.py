@@ -254,13 +254,50 @@ def test_entry_points_raise_without_device_argument(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--scene", str(scene_file), "--interactive"])
 
+    # the sharded paths and the last apps: meshes, the train step, fit and
+    # its schedules, the pose search, the dry run, the apps' defaults
+    import torch
+
+    from ray_tracing_tpu_torch.apps import flythrough, invert, pose_recovery
+    from ray_tracing_tpu_torch.diff import inverse
+    from ray_tracing_tpu_torch.entry import dryrun_multichip
+    from ray_tracing_tpu_torch.parallel import distributed, mesh
+
+    opt = torch.optim.SGD([scene.albedo.clone().requires_grad_()], lr=0.0)
+    target = torch.zeros(8, 8, 3)
+    for make in (
+        mesh.make_mesh,
+        mesh.single_device_mesh,
+        lambda: mesh.parse_mesh("2x1"),
+        lambda: distributed.global_mesh(),
+        lambda: distributed.initialize("file:///none", world_size=2, rank=0),
+        lambda: inverse.make_train_step(scene, cam, opt, 8, 8),
+        lambda: inverse.fit(scene, cam, target, steps=1),
+        lambda: inverse.fit_multiscale(scene, cam, target, schedule=((1, 1),)),
+        lambda: inverse.coarse_pose_search(scene, target),
+        lambda: dryrun_multichip(2),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    png = tmp_path / "t.png"
+    from ray_tracing_tpu_torch.io.image import save_png
+
+    save_png(np.zeros((8, 8, 3), np.float32), png)
+    for app, argv in ((invert.main, ["--scene", str(scene_file)]),
+                      (flythrough.main, ["--scene", str(scene_file), "--out-dir",
+                                         str(tmp_path / "fly")]),
+                      (pose_recovery.main, ["--scene", str(scene_file), "--target", str(png)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            app(argv)
+
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """(f) checked in a fresh interpreter, after importing the package and
     every module of it, after the CLI's main, and after running the
     interactive frame path's modules (native, scene.native, render.film,
-    diff.checkpoint, apps.viewer, apps.serve), whose imports are partly
-    made inside their functions."""
+    diff.checkpoint, apps.viewer, apps.serve) and the sharded ones
+    (parallel, fit with a checkpoint, apps.flythrough), whose imports are
+    partly made inside their functions."""
     scene_file = tmp_path / "scene.txt"
     scene_file.write_text(SCENE_2_TEXT)
     code = f"""
@@ -296,6 +333,18 @@ v = Viewer(scene, Camera.default("cpu"), 8, 6, cfg, make_cuda_render_fn(cfg, sky
 v.step(0); v.step(1); v.draw()
 svc = RenderService(scene, 8, 6, cfg, sky, device="cpu")
 svc.step(); svc.snapshot_png()
+# the sharded paths and the last apps, run
+from ray_tracing_tpu_torch.apps import flythrough
+from ray_tracing_tpu_torch.diff.inverse import fit
+from ray_tracing_tpu_torch.parallel.mesh import make_mesh
+from ray_tracing_tpu_torch.parallel.render import render_image_sharded
+m = make_mesh(2, 2, devices=["cpu"] * 4)
+img = render_image_sharded(scene, Camera.default("cpu"), 8, 6, 0, m, spp=2, config=cfg)
+fit(scene, Camera.default("cpu"), img, scene_fields=("albedo",), steps=1, spp=2, config=cfg,
+    mesh=m, checkpoint_dir={str(tmp_path / 'ck')!r})
+flythrough.main(["--scene", {str(scene_file)!r}, "--frames", "1", "--width", "8", "--height",
+                 "6", "--spp", "1", "--out-dir", {str(tmp_path / 'fly')!r}, "--sharded",
+                 "--mesh", "2x1", "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "ray_tracing_tpu"
              or m.startswith("ray_tracing_tpu."))

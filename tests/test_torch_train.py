@@ -398,7 +398,7 @@ def test_invert_app_runs_on_the_cpu(tmp_path, capsys):
     assert rc == 0 and out.stat().st_size > 0
     assert "loss: " in err and " -> " in err
     assert "albedo: |err| " in err
-    with pytest.raises(SystemExit):  # not ported yet: argparse refuses the flag
-        invert.main(["--scene", str(scene_file), "--multiscale"])
+    with pytest.raises(ValueError, match="TxS"):  # a malformed mesh is refused
+        invert.main(["--scene", str(scene_file), "--mesh", "3", "--device", "cpu"])
     with pytest.raises(ValueError, match="not optimizable"):
         invert.main(["--scene", str(scene_file), "--fields", "emissive", "--device", "cpu"])
