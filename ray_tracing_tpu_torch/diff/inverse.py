@@ -42,6 +42,7 @@ from ray_tracing_tpu_torch.parallel.mesh import (
 from ray_tracing_tpu_torch.parallel.render import all_reduce_, render_tiles_sharded
 from ray_tracing_tpu_torch.render.camera import Camera
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, Scene
+from ray_tracing_tpu_torch.utils.profiling import span
 
 SCENE_PARAM_FIELDS = (
     "p0", "p1", "albedo", "roughness", "reflectance", "metallic",
@@ -142,7 +143,10 @@ def make_train_step(base_scene: Scene, camera: Camera,
     every mesh shape: the sample axis does not multiply it (the JAX
     package's step returns S times it; parallel/render.py::SampleSum). The
     step updates the leaves in place and does not synchronise with the
-    device.
+    device. While a profiler runs it records the spans "train_step" and,
+    inside it, "step.params", "step.forward", "step.loss", "step.backward",
+    "step.reduce" (across processes only) and "step.optimizer"
+    (utils/profiling.py::span).
 
     sky_cache_mode=True makes it step(params, target, seed, sky_cache) ->
     (loss, sky_cache), sky_cache a dict {(tile, sample): cache} of this
@@ -178,22 +182,31 @@ def make_train_step(base_scene: Scene, camera: Camera,
     camera = camera.to(device)
 
     def step(params: dict, target, seed: int, sky_cache=None):
-        base = base_scene
-        if {"emission_power", "emission_color"} & set(params["scene"]):
-            base = dataclasses.replace(base, emissive=None)
-        scene = apply_params(base, params["scene"])
-        cam = dataclasses.replace(camera, **params["camera"])
-        optimizer.zero_grad(set_to_none=True)
-        images, caches = render_tiles_sharded(scene, cam, width, height, seed, mesh, spp,
-                                              config, cubemap, sky_cache)
-        sse = {t: torch.sum((img - target[t * local_h:(t + 1) * local_h].to(img.device)) ** 2)
-               .to(device) for t, img in images.items()}
-        (sum(sse.values()) / denom).backward()
-        loss = sum((sse[t].detach() for t in owned),
-                   torch.zeros((), device=device)) / denom
-        if across:
-            _reduce_over_processes(loss, optimizer)
-        optimizer.step()
+        with span("train_step"):
+            with span("step.params"):
+                base = base_scene
+                if {"emission_power", "emission_color"} & set(params["scene"]):
+                    base = dataclasses.replace(base, emissive=None)
+                scene = apply_params(base, params["scene"])
+                cam = dataclasses.replace(camera, **params["camera"])
+                optimizer.zero_grad(set_to_none=True)
+            with span("step.forward"):
+                images, caches = render_tiles_sharded(scene, cam, width, height, seed, mesh,
+                                                      spp, config, cubemap, sky_cache)
+            with span("step.loss"):
+                sse = {t: torch.sum((img - target[t * local_h:(t + 1) * local_h]
+                                     .to(img.device)) ** 2).to(device)
+                       for t, img in images.items()}
+                objective = sum(sse.values()) / denom
+                loss = sum((sse[t].detach() for t in owned),
+                           torch.zeros((), device=device)) / denom
+            with span("step.backward"):
+                objective.backward()
+            if across:
+                with span("step.reduce"):
+                    _reduce_over_processes(loss, optimizer)
+            with span("step.optimizer"):
+                optimizer.step()
         return (loss, caches) if sky_cache_mode else loss
 
     return step

@@ -116,6 +116,7 @@ from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
 from ray_tracing_tpu_torch.ops.vec import Vec3, div_scalar, fresnel_schlick
 from ray_tracing_tpu_torch.render.camera import Camera, camera_pack, pixel_grid
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, SCENE_COLS, Scene, light_origin_from
+from ray_tracing_tpu_torch.utils.profiling import span
 
 PLANE_NAMES = ("r", "g", "b", "sx", "sy", "sz", "cr", "cg", "cb", "miss")
 KERNEL_LIBRARY = "megakernel_fwd"
@@ -131,7 +132,8 @@ BWD_KERNELS = {
 
 # How often each kernel was launched: one count per kernel (the forward's two
 # template instantiations count apart), raised where the launch happens and
-# nowhere else.
+# nowhere else. run_tiles and run_bwd open a span "kernel.<key>" around each
+# call, so that a trace groups a kernel by the span that launched it.
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
                  **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS}}
 
@@ -715,11 +717,12 @@ def launch_info(kernel: str, job: TileJob) -> dict:
 def run_tiles(job: TileJob, seed: int, row0: int = 0, record: bool = False):
     """One sample per pixel: the CUDA kernel for a job on the card, the
     plain version for a job on the CPU. Nothing else decides between them."""
-    if job.rows.device.type == "cuda":
-        return _launch_fwd(job, seed, row0, record)
-    if job.rows.device.type != "cpu":
-        raise ValueError(f"unsupported device {job.rows.device}")
-    return run_tiles_plain(job, seed, row0, record)
+    with span("kernel.megakernel_fwd_record" if record else "kernel.megakernel_fwd"):
+        if job.rows.device.type == "cuda":
+            return _launch_fwd(job, seed, row0, record)
+        if job.rows.device.type != "cpu":
+            raise ValueError(f"unsupported device {job.rows.device}")
+        return run_tiles_plain(job, seed, row0, record)
 
 
 # ---------------------------------------------------------------------------
@@ -966,14 +969,15 @@ def run_bwd(job: TileJob, seed: int, row0: int, records, cotangents):
     card, its plain version for a job on the CPU. Nothing else decides
     between them. `records`: the fetch kernel's index planes, else None."""
     kernel = backward_kernel(job)
-    if job.rows.device.type == "cuda":
-        return _launch_bwd(kernel, job, seed, row0, records, cotangents)
-    if job.rows.device.type != "cpu":
-        raise ValueError(f"unsupported device {job.rows.device}")
-    if kernel == "fetch":
-        return run_bwd_plain(job, seed, row0, records, cotangents)
-    plain = run_bwd_replay_plain if kernel == "replay" else run_bwd_direct_plain
-    return plain(job, seed, row0, cotangents)
+    with span("kernel.megakernel_bwd_" + kernel):
+        if job.rows.device.type == "cuda":
+            return _launch_bwd(kernel, job, seed, row0, records, cotangents)
+        if job.rows.device.type != "cpu":
+            raise ValueError(f"unsupported device {job.rows.device}")
+        if kernel == "fetch":
+            return run_bwd_plain(job, seed, row0, records, cotangents)
+        plain = run_bwd_replay_plain if kernel == "replay" else run_bwd_direct_plain
+        return plain(job, seed, row0, cotangents)
 
 
 def effective_bwd_mode(scene: Scene, config: RenderConfig, width: int,
@@ -1079,11 +1083,23 @@ def compose_sky(planes, sky: Vec3) -> Vec3:
     return rgb.clip(0.0, 1.0)
 
 
+def sky_lookup(planes, cubemap: CubemapData, config: RenderConfig, pixels: int) -> Vec3:
+    """The sky radiance of one sample's miss directions (sample_cubemap),
+    in a span "sky_lookup" that counts the texels gathered for its
+    `pixels` pixels."""
+    bilinear = config.env_filter == "bilinear"
+    # the bilinear filter reads four texels a pixel, but one of a 1x1 cubemap
+    per_pixel = 4 if bilinear and cubemap.h * cubemap.w > 1 else 1
+    with span("sky_lookup", texels=pixels * per_pixel):
+        return sample_cubemap(cubemap, Vec3(planes[3], planes[4], planes[5]),
+                              bilinear=bilinear)
+
+
 def compose(planes, cubemap: CubemapData, config: RenderConfig) -> Vec3:
     """Sky lookup on the miss directions, then compose_sky."""
-    sky = sample_cubemap(cubemap, Vec3(planes[3], planes[4], planes[5]),
-                         bilinear=config.env_filter == "bilinear")
-    return compose_sky(planes, sky)
+    sky = sky_lookup(planes, cubemap, config, planes[3].numel())
+    with span("compose"):
+        return compose_sky(planes, sky)
 
 
 def sky_cache_capable(config: RenderConfig, cubemap: CubemapData) -> bool:
@@ -1148,7 +1164,12 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
     differs from the cache's (sparse_sky_lookup: one host read per sample).
     Either way the image is the full lookup's bit for bit: reuse is keyed on
     equal texel indices. The cache returned is None where none was kept; a
-    threaded cache comes back as it was given."""
+    threaded cache comes back as it was given.
+
+    Each sample opens a span "sky_lookup" (texel index, gather and unpack;
+    `texels` counts the texels gathered: every pixel's in a full gather, the
+    fresh blocks' in a sparse one) and a span "compose" (compose_sky and the
+    running sum); the frame ends in a span "average"."""
     if spp < 1:
         raise ValueError("spp must be at least 1")
     cfg = job.config
@@ -1156,37 +1177,46 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
     use_cache = (sky_cached and sky_cache_capable(cfg, cubemap)
                  and (spp > 1 or sky_cache is not None))
     sparse = use_cache and cfg.sky_sparse_gather
+    pixels = job.height * job.width
+    # the sparse lookup counts its texels itself (ops/cubemap.py)
+    gathered = {} if sparse else {"texels": pixels}
     total, cache = None, None
     if use_cache:
+        budget = max(int(pixels * cfg.sky_sparse_budget_frac) // SPARSE_BLOCK, 256)
         if sky_cache is None:
             planes, _ = tiles_fn(job, seeds[0], row0)
-            flat0, miss0 = _miss_texel_index(cubemap, planes)
+            with span("sky_lookup", **gathered):
+                flat0, miss0 = _miss_texel_index(cubemap, planes)
+                packed0 = (sparse_sky_lookup(cubemap, flat0, miss0, budget=budget) if sparse
+                           else gather_texels(cubemap, flat0, miss0))
+                sky = unpack_texels(packed0)
+            with span("compose"):
+                total = compose_sky(planes, sky)
+            seeds = seeds[1:]
         else:
             flat0, packed0, miss0 = sky_cache
             if tuple(flat0.shape) != (job.height, job.width):
                 raise ValueError(f"a sky cache of shape {tuple(flat0.shape)} for a "
                                  f"{job.height}x{job.width} frame")
-        budget = max(int(flat0.numel() * cfg.sky_sparse_budget_frac) // SPARSE_BLOCK, 256)
-        if sky_cache is None:
-            packed0 = (sparse_sky_lookup(cubemap, flat0, miss0, budget=budget) if sparse
-                       else gather_texels(cubemap, flat0, miss0))
-            total = compose_sky(planes, unpack_texels(packed0))
-            seeds = seeds[1:]
         cache = (flat0, packed0, miss0)
     for s in seeds:
         planes, _ = tiles_fn(job, s, row0)
         if sparse:
-            flat, miss = _miss_texel_index(cubemap, planes)
-            packed = sparse_sky_lookup(cubemap, flat, miss, flat0, packed0, miss0, budget)
-            rgb = compose_sky(planes, unpack_texels(packed))
+            with span("sky_lookup"):
+                flat, miss = _miss_texel_index(cubemap, planes)
+                sky = unpack_texels(sparse_sky_lookup(cubemap, flat, miss, flat0, packed0,
+                                                      miss0, budget))
         else:
-            rgb = compose(planes, cubemap, cfg)
-        total = rgb if total is None else total + rgb
-    if spp > 1:
-        total = total * (1.0 / spp)
-    if cfg.soft_silhouette_temp > 0:
-        total = _soft_silhouettes(job, total, cubemap, row0)
-    return total.to_array(), cache
+            sky = sky_lookup(planes, cubemap, cfg, pixels)
+        with span("compose"):
+            rgb = compose_sky(planes, sky)
+            total = rgb if total is None else total + rgb
+    with span("average"):
+        if spp > 1:
+            total = total * (1.0 / spp)
+        if cfg.soft_silhouette_temp > 0:
+            total = _soft_silhouettes(job, total, cubemap, row0)
+        return total.to_array(), cache
 
 
 def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
@@ -1221,14 +1251,17 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     means the card and raises without one; device="cpu" runs the plain
     versions."""
     device = resolve_device(device)
-    if cubemap is None:
-        cubemap = constant_sky(device=device)
-    mode = effective_bwd_mode(scene, config, width, height, spp)
-    if mode != config.bwd_mode:
-        config = config.replace(bwd_mode=mode)
-    job = make_tile_job(scene.to(device), camera.to(device), width, height,
-                        config, norm_height, aspect)
-    img, cache = render_frame(job, run_tiles_grad, seed, spp, cubemap.to(device), row0,
-                              sky_cached=True, sky_cache=sky_cache,
-                              first_sample=first_sample, frame_spp=frame_spp)
+    with span("render_image", pixels=width * height, samples=spp):
+        with span("tile_job"):
+            if cubemap is None:
+                cubemap = constant_sky(device=device)
+            mode = effective_bwd_mode(scene, config, width, height, spp)
+            if mode != config.bwd_mode:
+                config = config.replace(bwd_mode=mode)
+            job = make_tile_job(scene.to(device), camera.to(device), width, height,
+                                config, norm_height, aspect)
+            cubemap = cubemap.to(device)
+        img, cache = render_frame(job, run_tiles_grad, seed, spp, cubemap, row0,
+                                  sky_cached=True, sky_cache=sky_cache,
+                                  first_sample=first_sample, frame_spp=frame_spp)
     return (img, cache) if return_sky_cache else img

@@ -25,6 +25,7 @@ import torch
 
 from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.ops.vec import Vec3
+from ray_tracing_tpu_torch.utils.profiling import add_counts
 
 # Face order of the reference renderer.
 CF_FRONT, CF_BACK, CF_LEFT, CF_RIGHT, CF_TOP, CF_BOTTOM = 0, 1, 2, 3, 4, 5
@@ -226,7 +227,10 @@ def sparse_sky_lookup(cubemap: CubemapData, flat, need, cache_flat=None,
     The tier is chosen from the number of fresh blocks, read on the host:
     one synchronisation per call (the JAX package chooses with lax.cond on
     the device). Returns an int32 texel plane of `flat`'s shape, 0 where
-    ~need. Only for packed (8-bit) cubemaps."""
+    ~need. Only for packed (8-bit) cubemaps. While a profiler runs, the
+    texels gathered (the fresh blocks' pixels, or every pixel) are added to
+    the open span's count `texels` (utils/profiling.py::add_counts): the
+    sky cache's misses, at no extra read."""
     if cubemap.packed is None:
         raise ValueError("the sparse lookup needs a packed cubemap")
     shape = flat.shape
@@ -241,6 +245,7 @@ def sparse_sky_lookup(cubemap: CubemapData, flat, need, cache_flat=None,
         cached = cache_packed.reshape(-1)
     fresh_need = need & ~reuse
     if size % SPARSE_BLOCK:
+        add_counts(texels=size)
         fresh = gather_texels(cubemap, flat, fresh_need)
     else:
         nb = size // SPARSE_BLOCK
@@ -250,6 +255,7 @@ def sparse_sky_lookup(cubemap: CubemapData, flat, need, cache_flat=None,
         tiers = sorted({max(min(budget // 4, nb), 1), max(min(budget, nb), 1)})
         count = int(fb.sum())  # the one read on the host
         bb = next((t for t in tiers if count <= t), None)
+        add_counts(texels=size if bb is None else count * SPARSE_BLOCK)
         fresh = (gather_texels(cubemap, flat, fresh_need) if bb is None
                  else _compacted_gather(cubemap, flat, fb, bb))
     out = torch.where(need, torch.where(reuse, cached, fresh), 0)

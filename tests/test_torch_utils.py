@@ -13,7 +13,9 @@ bit for bit (integers).
 """
 
 import importlib.util
+import json
 import pathlib
+import threading
 import time
 
 import numpy as np
@@ -31,7 +33,9 @@ from ray_tracing_tpu.utils import profiling as jprof
 from ray_tracing_tpu.utils import timing as jtiming
 
 from ray_tracing_tpu_torch.config import RenderConfig as TCfg
+from ray_tracing_tpu_torch.kernels import megakernel as tmk
 from ray_tracing_tpu_torch.kernels import peak
+from ray_tracing_tpu_torch.render.camera import Camera as TCamera
 from ray_tracing_tpu_torch.scene.parser import parse_scene_string as tparse
 from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
 from ray_tracing_tpu_torch.utils import flops as tflops
@@ -113,20 +117,23 @@ def test_rate_meter_equals_jax_on_one_clock(monkeypatch, window):
     assert meters["torch"] == meters["jax"]
 
 
-def test_timed_equals_jax_on_one_clock(monkeypatch):
-    got = {}
-    for name, mod, fn in (("jax", jprof, lambda: jnp.sum(jnp.arange(64.0))),
-                          ("torch", tprof, lambda: torch.arange(64.0).sum())):
-        monkeypatch.setattr(time, "perf_counter", scripted_clock(seed=3))
-        result, seconds = mod.timed(fn, iters=3)
-        got[name] = (float(result), seconds)
-    assert got["torch"] == got["jax"]
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The trace holds the profiler's events and the program's spans on
+    one clock: a frame's render_image span encloses its TileJob's cat."""
+    scene = tparse(SCENE_2_TEXT, device="cpu")
     with tprof.trace(str(tmp_path / "t")):
         (torch.arange(512.0) @ torch.arange(512.0)).item()
-    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
+        tmk.render_image_cuda(scene, TCamera.default("cpu"), 8, 6, seed=1, device="cpu")
+    doc = json.loads((tmp_path / "t" / "trace.json").read_text())
+    events = doc["traceEvents"]
+    (frame,) = [e for e in events if e.get("cat") == "span" and e["name"] == "render_image"]
+    assert frame["args"] == {"pixels": 48, "samples": 1}
+    assert frame["tid"] == threading.get_native_id()
+    cats = [e for e in events if e.get("name") == "aten::cat" and e.get("tid") == frame["tid"]]
+    assert any(frame["ts"] <= e["ts"] and e["ts"] + e["dur"] <= frame["ts"] + frame["dur"]
+               for e in cats)
+    assert {e["name"] for e in events if e.get("cat") == "span"} >= {
+        "tile_job", "kernel.megakernel_fwd", "sky_lookup", "compose", "average"}
 
 
 def test_environment_fingerprint_on_the_cpu():
@@ -380,9 +387,7 @@ def test_gather_kernel_equals_torch_take_on_the_sky_indices(cuda_device):
     """The main path's gather: one sample's texel indices of the lit room
     and of scene_2 at 256x144 into a packed 256^2 cubemap, whole and from a
     storage offset of 3."""
-    from ray_tracing_tpu_torch.kernels import megakernel as tmk
     from ray_tracing_tpu_torch.ops.cubemap import checker_sky
-    from ray_tracing_tpu_torch.render.camera import Camera as TCamera
 
     sky = checker_sky(256, device=cuda_device)
     camera = TCamera.default(cuda_device)
