@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels (the forward megakernel; the three backward kernels
-"fetch", "replay" and "direct"; the FMA peak kernel and the gather probe) from
-the sources in this checkout, holds each against its plain PyTorch version on
+"fetch", "replay" and "direct"; the FMA peak kernel, the gather probe, and a
+sample's sky compose and its adjoint) from the sources in this checkout,
+holds each against its plain PyTorch version on
 the card, renders the serving path (scene_2 and a lit room at 1920x1080,
 default physics, a 2048^2 packed cubemap) through the entry points a user
 would call, runs the command line, then the interactive frame path (the
@@ -84,7 +85,7 @@ from ray_tracing_tpu_torch.io.image import (
 )
 from ray_tracing_tpu_torch.kernels import build, peak
 from ray_tracing_tpu_torch.kernels import megakernel as mk
-from ray_tracing_tpu_torch.ops.cubemap import CubemapData, checker_sky
+from ray_tracing_tpu_torch.ops.cubemap import CubemapData, checker_sky, constant_sky
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
 from ray_tracing_tpu_torch.parallel.distributed import global_mesh, initialize, local_tile_range
 from ray_tracing_tpu_torch.parallel.mesh import make_mesh
@@ -252,6 +253,10 @@ def _ptxas_report(log: str) -> dict:
                 current = "gather_probe_staged"
             elif "gather_kernel" in sym:
                 current = "gather_probe"
+            elif "sky_compose_adjoint_kernel" in sym:
+                current = "sky_compose_adjoint"
+            elif "sky_compose_kernel" in sym:
+                current = "sky_compose"
             else:
                 current = next((v for k, v in _WINNERS.items() if k in sym), sym)
             kernels[current] = {"symbol": sym}
@@ -400,18 +405,20 @@ def add_trace_loops(kernels: dict, paths: dict) -> None:
 
 
 def phase_build() -> dict:
-    """The five libraries, one nvcc each, started together. Returns ptxas'
+    """The six libraries, one nvcc each, started together. Returns ptxas'
     report per kernel."""
     names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY,
-             peak.LIBRARY, gather_probe.LIBRARY)
+             peak.LIBRARY, gather_probe.LIBRARY, mk.SKY_COMPOSE_LIBRARY)
     infos, kernels, wall = build_libraries(names)
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
-    # each winner source; the FMA peak (K6) and the gather (P1: a small
-    # table staged in shared memory, or read through L1 and L2)
+    # each winner source; the FMA peak (K6), the gather (P1: a small table
+    # staged in shared memory, or read through L1 and L2), and a sample's sky
+    # compose and its adjoint
     if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay",
                                       "bwd_direct", "peak_fma", "gather_probe",
-                                      "gather_probe_staged"}:
-        raise RuntimeError("expected eight kernels in the ptxas logs:\n"
+                                      "gather_probe_staged", "sky_compose",
+                                      "sky_compose_adjoint"}:
+        raise RuntimeError("expected ten kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     # K6 must be fused multiply-adds although every library is built with
     # --fmad=false: the unrolled body alone holds 64 x 8 of them
@@ -424,6 +431,7 @@ def phase_build() -> dict:
         mk._bwd_kernel_function(kernel)
     peak._function()
     gather_probe._function()
+    build.load_library(mk.SKY_COMPOSE_LIBRARY)
     emit("build", seconds=round(wall, 2),
          seconds_each={n: round(i["seconds"], 2) for n, i in zip(names, infos)},
          flags=" ".join(build.NVCC_FLAGS), kernels=kernels)
@@ -878,6 +886,86 @@ def phase_stream_identity(fetch_results, retrace_results) -> None:
     emit("stream_identity", frames=len(rows), all_bit_equal=True, results=rows)
 
 
+def sky_compose_bound(cubemap, planes) -> dict:
+    """Least time of one sample's sky compose into a running sum (no grad)
+    and of its adjoint on a packed sky: every plane read and written once
+    (the forward: 40 bytes of planes, 12 of the sum in and 12 out a pixel;
+    the adjoint: 12 of cotangent and 16 of state in, 40 out) and, in the
+    forward, each distinct 32-byte sector of the table that the sample's
+    texels lie in once, at the memory rate."""
+    pixels = planes[0].numel()
+    flat, _ = mk._miss_texel_index(cubemap, planes)
+    table = 32 * torch.unique(flat.reshape(-1) // 8).numel()
+    fwd, adj = 64 * pixels + table, 68 * pixels
+    return {"bound_ms": fwd / PEAK_BYTES * 1e3, "bytes": fwd,
+            "adjoint_bound_ms": adj / PEAK_BYTES * 1e3, "adjoint_bytes": adj, "bound_by": "bytes"}
+
+
+def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
+    """The sky compose kernels (csrc/sky_compose.cu) on one sample of
+    scene_2 and of the room at full size, added into a running sum, with the
+    checker sky and a 1x1 float sky, against their plain version
+    (sky_compose_plain, sky_compose_adjoint_plain) and against the plain
+    lookup and compose they replace (compose) and autograd through it: the
+    sum, the saved state and the cotangent bit for bit against the plain
+    version; against autograd the cotangent of the radiance and throughput
+    planes bit for bit and the miss plane's within 1e-6 of the sum of the
+    magnitudes of the three channels' terms it adds, in another order
+    (tests/test_torch_sky_compose.py says why). Then their times on the
+    checker sky (no grad, in place; under grad, with the state; the
+    adjoint) beside the plain lookup and compose and the bound. Returns the
+    numbers per scene."""
+    cfg = RenderConfig()
+    dev = camera.device
+    skies = {"checker": sky, "constant": constant_sky((0.3, 0.5, 0.7), device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for name in ("scene_2", "room"):
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, cfg)
+        planes, _ = mk.run_tiles(job, 21)
+        prev = torch.rand((HEIGHT, WIDTH, 3), generator=gen, device=dev)
+        g = torch.randn((HEIGHT, WIDTH, 3), generator=gen, device=dev)
+        res = {}
+        for sky_name, cm in skies.items():
+            got, state, _ = mk._launch_sky_compose(planes, prev, cm, False, True)
+            g_planes = mk._launch_sky_compose_adjoint(g, state, cm)
+            want, w_state, _ = mk.sky_compose_plain(planes, prev, cm, keep_state=True)
+            w_g = mk.sky_compose_adjoint_plain(g, w_state, cm)
+            p = planes.clone().requires_grad_(True)
+            lookup = prev + mk.compose(p, cm, cfg).to_array()
+            (a_g,) = torch.autograd.grad(lookup, [p], g)
+            s_ = mk._state_sky(state, cm)
+            scale = sum((g_planes[ch] * (c * planes[6 + ch])).abs()
+                        for ch, c in enumerate((s_.x, s_.y, s_.z)))
+            off = (g_planes[9] - a_g[9]).abs()
+            err = float((off / scale.clamp_min(1e-30)).max())
+            equal = {"sum_vs_plain": torch.equal(got, want),
+                     "sum_vs_lookup": torch.equal(got, lookup.detach()),
+                     "state": torch.equal(state, w_state),
+                     "cotangent_vs_plain": torch.equal(g_planes, w_g),
+                     "cotangent_vs_autograd": torch.equal(g_planes[:9], a_g[:9])}
+            if not all(equal.values()) or not bool((off <= 1e-6 * scale).all()):
+                raise RuntimeError(f"sky compose on {name}, {sky_name} sky: {equal}, miss "
+                                   f"cotangent off by {err:.3g} of its terms' magnitudes")
+            res[sky_name] = {"miss_cotangent_err_over_terms": err,
+                             "miss_cotangent_max_rel_err": float(
+                                 (off / a_g[9].abs().clamp_min(1e-30)).max())}
+        acc = prev.clone()
+        _, state, _ = mk._launch_sky_compose(planes, prev, sky, False, True)
+        res.update(
+            kernel_ms=time_launches(lambda i: mk._launch_sky_compose(planes, acc, sky, False,
+                                                                     False), 50),
+            state_ms=time_launches(lambda i: mk._launch_sky_compose(planes, prev, sky, False,
+                                                                    True), 50),
+            adjoint_ms=time_launches(lambda i: mk._launch_sky_compose_adjoint(g, state, sky), 50),
+            plain_ms=time_launches(lambda i: prev + mk.compose(planes, sky, cfg).to_array(), 20),
+            **sky_compose_bound(sky, planes))
+        out[name] = res
+    emit("sky_compose_vs_plain", size=[WIDTH, HEIGHT], all_bit_equal=True,
+         unit="ms per sample, median", **out)
+    return out
+
+
 def phase_peak_and_gather_vs_plain(scenes, camera, sky) -> dict:
     """K6 against its plain recurrence at the bench's shape, P1 against
     torch.take bit for bit at the probe's shape, at ragged lengths, on views
@@ -960,15 +1048,29 @@ def phase_peak_and_gather_vs_plain(scenes, camera, sky) -> dict:
     return {"peak": peak_res, "peak_ms": main_ms}
 
 
+def plain_lookup_frame(job, seed: int, spp: int, sky):
+    """A frame of the forward kernel's samples, each through the plain sky
+    lookup and compose (compose: sample_cubemap, compose_sky), summed in
+    sample order and averaged as render_frame does: the frame that the sky
+    compose kernel (csrc/sky_compose.cu) must equal bit for bit."""
+    with torch.no_grad():
+        total = None
+        for s in mk.frame_sample_seeds(seed, spp):
+            rgb = mk.compose(mk.run_tiles(job, s)[0], sky, job.config).to_array()
+            total = rgb if total is None else total + rgb
+        return total * (1.0 / spp) if spp > 1 else total
+
+
 def phase_bench_path(scenes, camera, sky) -> dict:
     """The port's bench (python -m ray_tracing_tpu_torch.bench) at its full
     size, its JSON line printed on a line of its own; every launch counter
-    set to 0 before it and read after it. Then the sky cache's exactness on
-    the bench's frame, with the sparse lookup off (the default) and on: 8
+    set to 0 before it and read after it (the sky compose kernel among
+    them). Then the sky cache's exactness on the bench's frame, with the
+    sparse lookup off (the default: the sky compose kernel) and on: 8
     samples of scene_2 with the cache seeded by sample 0, with a threaded
     cache and with a stale one from a turned camera, each equal bit for bit
-    to the frame of the plain render_image's sky lookup, which keeps no
-    cache."""
+    to the frame of the plain lookup and compose (plain_lookup_frame), which
+    keeps no cache."""
     mk.reset_launch_counts()
     peak.reset_launch_counts()
     gather_probe.reset_launch_counts()
@@ -976,7 +1078,8 @@ def phase_bench_path(scenes, camera, sky) -> dict:
     torch.cuda.synchronize()
     print(json.dumps(res["line"]), flush=True)
     counts = {**mk.launch_counts, **peak.launch_counts, **gather_probe.launch_counts}
-    for k in ("megakernel_fwd", "megakernel_fwd_record", "megakernel_bwd_fetch", "peak_fma"):
+    for k in ("megakernel_fwd", "megakernel_fwd_record", "megakernel_bwd_fetch", "peak_fma",
+              "sky_compose", "sky_compose_adjoint"):
         if counts[k] < 1:
             raise RuntimeError(f"kernel {k} was not launched on the bench path")
     vpu = res["fma_peak"]
@@ -992,10 +1095,10 @@ def phase_bench_path(scenes, camera, sky) -> dict:
     turned = rotate(camera, *STALE_TURN, RenderConfig())
     equal = {}
     for lookup, cfg in (("full", RenderConfig()), ("sparse", SPARSE_SKY)):
-        # the uncached frame: the kernel's samples, each through compose's
-        # full lookup (render_frame keeping no sky cache)
+        # the uncached frame: the kernel's samples, each through the plain
+        # lookup and compose
         job = mk.make_tile_job(scene, camera, WIDTH, HEIGHT, cfg)
-        dense, _ = mk.render_frame(job, mk.run_tiles_grad, 5, SPP, sky)
+        dense = plain_lookup_frame(job, 5, SPP, sky)
         seeded, cache = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP,
                                              config=cfg, cubemap=sky, return_sky_cache=True)
         threaded = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP, config=cfg,
@@ -1121,9 +1224,13 @@ def phase_main_path(scenes, camera, sky) -> dict:
 
     report = {}
     for name in ("scene_2", "room"):
+        before = dict(mk.launch_counts)
         plain = render_image(scenes[name], camera, WIDTH, HEIGHT, seed=1, spp=SPP,
                              config=cfg, cubemap=sky)
         torch.cuda.synchronize()
+        if mk.launch_counts != before:
+            raise RuntimeError(f"{name}: the plain render launched a kernel: "
+                               f"{ {k: v - before[k] for k, v in mk.launch_counts.items()} }")
         img = out[name]["image"]
         off = abs(float(plain.mean()) - out[name]["mean"])
         if off > 0.01:
@@ -1551,13 +1658,14 @@ def plain_replay_tiles(job, seed: int, row0: int = 0):
 
 
 def frame_gradient_plain(scene, camera, sky, cfg, seed: int = 1, spp: int = SPP) -> dict:
-    """The same gradient through the plain versions of both kernels, slice by
-    slice."""
+    """The same gradient through the plain versions of both kernels and the
+    plain sky lookup and compose, slice by slice."""
     scene_l, cam_l, leaves = with_leaves(scene, camera)
     h = HEIGHT // TRAIN_SLICES
     for k in range(TRAIN_SLICES):
         job = mk.make_tile_job(scene_l, cam_l, WIDTH, h, cfg, norm_height=HEIGHT)
-        img, _ = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h)
+        img, _ = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h,
+                                 plain_sky=True)
         img.sum().backward()  # adds into the leaves' gradients
     return {n: t.grad for n, t in leaves.items()}
 
@@ -1576,7 +1684,8 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         rose = {k: mk.launch_counts[k] - before[k] for k in before}
         if rose != {**dict.fromkeys(before, 0), "megakernel_fwd_record": SPP,
-                    "megakernel_bwd_fetch": SPP}:
+                    "megakernel_bwd_fetch": SPP, "sky_compose": SPP,
+                    "sky_compose_adjoint": SPP}:
             raise RuntimeError(f"{name}: launch counters rose by {rose}")
         for leaf, g in grads[name].items():
             if g is None or not torch.isfinite(g).all():
@@ -1628,7 +1737,8 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
     grads = {n: t.grad for n, t in leaves.items()}
     rose = {k: mk.launch_counts[k] - before[k] for k in before}
     want = {k: 0 for k in before}
-    want.update(megakernel_fwd=OVER_BUDGET_SPP, megakernel_bwd_replay=OVER_BUDGET_SPP)
+    want.update(megakernel_fwd=OVER_BUDGET_SPP, megakernel_bwd_replay=OVER_BUDGET_SPP,
+                sky_compose=OVER_BUDGET_SPP, sky_compose_adjoint=OVER_BUDGET_SPP)
     if rose != want:
         raise RuntimeError(f"the over-budget gradient launched {rose}")
     for leaf, g in grads.items():
@@ -1766,7 +1876,8 @@ def phase_sharded_render(scenes, camera, sky) -> dict:
         got = {n: render_image_sharded(scenes[n], camera, WIDTH, HEIGHT, 3, mesh, spp=SPP,
                                        config=cfg, cubemap=sky) for n in ("scene_2", "room")}
         counts = read_counts()
-        want = {**dict.fromkeys(counts, 0), "megakernel_fwd": 2 * n_tiles * SPP}
+        want = {**dict.fromkeys(counts, 0), "megakernel_fwd": 2 * n_tiles * SPP,
+                "sky_compose": 2 * n_tiles * SPP}
         if counts != want:
             raise RuntimeError(f"the sharded frames launched {counts}, expected {want}")
         for n in ("scene_2", "room"):
@@ -2437,7 +2548,7 @@ def trace_fields(kname: str, ptxas: dict, scenes, at_full, dev: dict, cfg) -> di
 
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
                   film_counts, timing, checks, bench_res, sky_res, ptxas, dev,
-                  sharded_counts) -> None:
+                  sharded_counts, sky_compose) -> None:
     cfg = RenderConfig()
     rows = []
     # the census of the plain estimator (utils/flops.py, every lane of every
@@ -2600,6 +2711,25 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
         # bound counts each distinct 32-byte sector of the table once)
         "per_case": sky_res["cases"],
     })
+    for kname, ms, bound_key in (("sky_compose", "kernel_ms", "bound_ms"),
+                                 ("sky_compose_adjoint", "adjoint_ms", "adjoint_bound_ms")):
+        lead = sky_compose["scene_2"]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "ray_tracing_tpu_torch/kernels/csrc/sky_compose.cu",
+            "registers": ptxas[kname]["registers"],
+            "replaces": "none: the sky lookup and compose that XLA fuses inside "
+                        "ray_tracing_tpu/kernels/megakernel.py::render_image_pallas",
+            "launches": counts[kname] if kname == "sky_compose" else train_counts[kname],
+            "launches_by_path": {"serving": counts[kname], "training": train_counts[kname]},
+            "max_abs_err": 0,  # bit-equal (phase sky_compose_vs_plain; the miss cotangent 1e-6 rel)
+            "ms": lead[ms], "plain_ms": lead["plain_ms"],
+            "bound_ms": lead[bound_key], "bound_by": "bytes",
+            "library_ms": None,  # no single PyTorch call looks a cubemap up
+            "shape": [WIDTH, HEIGHT], "scene": "scene_2",
+            "per_scene": {n: {"ms": r[ms], "bound_ms": r[bound_key], "plain_ms": r["plain_ms"]}
+                          for n, r in sky_compose.items()},
+        })
     for row in rows:  # the share of the least time the card could take
         row["bound_share"] = row["bound_ms"] / row["ms"]
         # the launches of each sharded path, each counted from 0 just
@@ -2741,6 +2871,7 @@ def main() -> int:
     many_fetch, many_retrace = phase_many_shadow_samples(scenes, camera)
     phase_stream_identity(bwd_results + many_fetch, retrace + retrace_full_results + many_retrace)
     checks = phase_peak_and_gather_vs_plain(scenes, camera, sky)
+    sky_compose = phase_sky_compose_vs_plain(scenes, camera, sky)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
     phase_native()
@@ -2763,7 +2894,8 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
-                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev, sharded_counts)
+                  film_counts, timing, checks, bench_res, sky_res, ptxas, dev, sharded_counts,
+                  sky_compose)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

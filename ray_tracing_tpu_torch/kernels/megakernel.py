@@ -66,8 +66,16 @@ are ``tile_physics`` differentiated by autograd over three tracers:
     "direct" (K5)  DirectTracer on the scene table itself
                    (run_bwd_direct_plain)
 
-The wrappers (``run_tiles``, ``run_bwd``) take a plain version only for
-tensors that lie on the CPU; on CUDA tensors they launch the kernel or raise.
+The wrappers (``run_tiles``, ``run_bwd``, ``sky_compose``) take a plain
+version only for tensors that lie on the CPU; on CUDA tensors they launch the
+kernel or raise.
+
+Each sample's nearest-texel sky lookup, compose and running sum is one launch
+of ``csrc/sky_compose.cu`` (``sky_compose``; plain version
+``sky_compose_plain``), which the JAX package leaves to XLA inside
+render_image_pallas; under grad ``SkyComposeFunction`` keeps four int32 planes
+a pixel (five for a float sky larger than 1x1) and its adjoint kernel writes
+the sample's (10,H,W) cotangent.
 
 Gradients: ``render_image_cuda`` of a scene or camera whose leaves require
 grad is differentiable end to end. ``TilesFunction`` is the boundary: in
@@ -93,6 +101,7 @@ from ray_tracing_tpu_torch.ops.cubemap import (
     SPARSE_BLOCK,
     CubemapData,
     constant_sky,
+    face_uv,
     gather_texels,
     sample_cubemap,
     sparse_sky_lookup,
@@ -122,6 +131,7 @@ PLANE_NAMES = ("r", "g", "b", "sx", "sy", "sz", "cr", "cg", "cb", "miss")
 KERNEL_LIBRARY = "megakernel_fwd"
 BWD_KERNEL_LIBRARY = "megakernel_bwd"
 RETRACE_KERNEL_LIBRARY = "megakernel_bwd_retrace"
+SKY_COMPOSE_LIBRARY = "sky_compose"
 
 # The backward kernels: (library, C entry point), by backward_kernel's name.
 BWD_KERNELS = {
@@ -133,9 +143,12 @@ BWD_KERNELS = {
 # How often each kernel was launched: one count per kernel (the forward's two
 # template instantiations count apart), raised where the launch happens and
 # nowhere else. run_tiles and run_bwd open a span "kernel.<key>" around each
-# call, so that a trace groups a kernel by the span that launched it.
+# call, so that a trace groups a kernel by the span that launched it; the
+# sky compose runs in render_frame's span "compose", its adjoint in
+# "kernel.sky_compose_adjoint".
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
-                 **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS}}
+                 **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS},
+                 "sky_compose": 0, "sky_compose_adjoint": 0}
 
 # Device memory the winner-index planes of one differentiated frame may take
 # (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
@@ -1102,6 +1115,254 @@ def compose(planes, cubemap: CubemapData, config: RenderConfig) -> Vec3:
         return compose_sky(planes, sky)
 
 
+# ---------------------------------------------------------------------------
+# One sample's sky lookup, compose and running sum: the kernels' wrappers,
+# their plain version and the autograd boundary
+# ---------------------------------------------------------------------------
+
+# The int32 word the compose keeps a pixel under grad (csrc/sky_compose.cu):
+# bits 0-23 the texel of a packed sky or the face of a 1x1 float sky, bits
+# 24-29 each channel's clip code (SKY_CLIP_*), bit 30 the miss flag.
+SKY_TEXEL_MASK = 0xFFFFFF
+SKY_CLIP_SHIFT = 24
+SKY_MISS_BIT = 1 << 30
+SKY_CLIP_FULL, SKY_CLIP_HALF = 2, 1  # 0: the clip passes no cotangent
+
+
+def fused_sky_compose(config: RenderConfig, cubemap: CubemapData) -> bool:
+    """Whether render_frame composes each sample through sky_compose: the
+    nearest-texel lookup, with the sparse lookup off, of a sky that no
+    gradient asks for. The bilinear filter (whose direction gradient
+    sky_compose does not carry), the sparse lookup and a float sky whose
+    planes require grad (sky_compose takes the sky as a constant) keep
+    sky_lookup and compose_sky."""
+    sky_grad = any(t is not None and t.requires_grad for t in (cubemap.r, cubemap.g, cubemap.b))
+    return config.env_filter == "nearest" and not config.sky_sparse_gather and not sky_grad
+
+
+def sky_state_planes(cubemap: CubemapData) -> int:
+    """int32 planes a pixel that sky_compose keeps for the backward: the word
+    and the three throughput planes, and for a float sky larger than 1x1 the
+    flat texel index."""
+    return 5 if cubemap.packed is None and cubemap.h * cubemap.w > 1 else 4
+
+
+def _clip_code(x):
+    """SKY_CLIP_FULL inside (0, 1) and on NaN, SKY_CLIP_HALF exactly on 0 or
+    1, 0 outside: how min(max(x, 0), 1) passes a cotangent in autograd."""
+    out = torch.where((x == 0) | (x == 1), SKY_CLIP_HALF, SKY_CLIP_FULL)
+    return torch.where((x < 0) | (x > 1), 0, out).to(torch.int32)
+
+
+def sky_compose_plain(planes, total, cubemap: CubemapData, cache: bool = False,
+                      keep_state: bool = False):
+    """The plain PyTorch version of the forward CUDA kernel: one sample's
+    nearest-texel sky lookup, compose_sky, and the running sum. `planes`
+    (10,H,W) from tile_physics (the miss plane holds 0 or 1), `total` the
+    (H,W,3) running sum or None for the first sample. Returns (total + rgb,
+    state, cache): `state` the (sky_state_planes,H,W) int32 planes the
+    adjoint reads (with keep_state, else None); with `cache` (sample 0 of a
+    frame that keeps a sky cache: a packed sky larger than 1x1) the cache
+    (flat texel index, texel where the path missed and 0 elsewhere, miss
+    flag) and a compose with that texel, as gather_texels gives it, else
+    None. Bit for bit what sample_cubemap and compose_sky compute."""
+    d = Vec3(planes[3], planes[4], planes[5])
+    miss = planes[9]
+    if cubemap.h * cubemap.w == 1:
+        k = face_uv(d)[0]
+    else:
+        k = texel_flat_index(cubemap, d)
+    cached = None
+    if cubemap.packed is not None:
+        low = cubemap.packed[k.long()]
+        if cache:
+            miss0 = miss > 0.5
+            low = torch.where(miss0, low, 0)
+            cached = (k, low, miss0)
+        sky = unpack_texels(low)
+    else:
+        kl = k.long()
+        sky = Vec3(cubemap.r[kl], cubemap.g[kl], cubemap.b[kl])
+        low = k if cubemap.h * cubemap.w == 1 else torch.zeros_like(k)
+    c = Vec3(planes[6], planes[7], planes[8])
+    x = Vec3(planes[0], planes[1], planes[2]) + sky * c * miss
+    rgb = x.clip(0.0, 1.0).to_array()
+    out = rgb if total is None else total + rgb
+    state = None
+    if keep_state:
+        word = low | torch.where(miss > 0.5, SKY_MISS_BIT, 0).to(torch.int32)
+        for ch, xc in enumerate((x.x, x.y, x.z)):
+            word = word | (_clip_code(xc) << (SKY_CLIP_SHIFT + 2 * ch))
+        rest = [k] if sky_state_planes(cubemap) == 5 else []
+        state = torch.stack([word, *(p.view(torch.int32) for p in planes[6:9]), *rest])
+    return out, state, cached
+
+
+def _state_sky(state, cubemap: CubemapData) -> Vec3:
+    """The sky radiance a compose used, from its saved state."""
+    word = state[0]
+    if cubemap.packed is not None:
+        return unpack_texels(word & SKY_TEXEL_MASK)
+    k = (word & SKY_TEXEL_MASK) if cubemap.h * cubemap.w == 1 else state[4]
+    k = k.long()
+    return Vec3(cubemap.r[k], cubemap.g[k], cubemap.b[k])
+
+
+def sky_compose_adjoint_plain(g_total, state, cubemap: CubemapData):
+    """The plain PyTorch version of the adjoint CUDA kernel: the (10,H,W)
+    cotangent of one sample's planes from the running sum's (H,W,3)
+    cotangent and the state sky_compose_plain kept. The clip passes all,
+    half or none of each channel's cotangent as autograd does; the direction
+    planes get 0."""
+    word = state[0]
+    sky = _state_sky(state, cubemap)
+    miss = ((word & SKY_MISS_BIT) != 0).to(torch.float32)
+    zero = torch.zeros_like(miss)
+    g_x, g_c, terms = [], [], []
+    for ch, s in enumerate((sky.x, sky.y, sky.z)):
+        g = g_total[..., ch]
+        code = (word >> (SKY_CLIP_SHIFT + 2 * ch)) & 3
+        gx = torch.where(code == SKY_CLIP_FULL, g, torch.where(code == SKY_CLIP_HALF, g * 0.5, zero))
+        g_x.append(gx)
+        g_c.append(gx * miss * s)
+        terms.append(gx * (s * state[1 + ch].view(torch.float32)))
+    g_miss = terms[0] + terms[1] + terms[2]
+    return torch.stack([*g_x, zero, zero, zero, *g_c, g_miss])
+
+
+def _sky_pointers(cubemap: CubemapData, dev):
+    """(packed, r, g, b, h, w) of the kernels' C arguments, after checking
+    the storage."""
+    size = 6 * cubemap.h * cubemap.w
+    if cubemap.packed is not None:
+        _check_tensor("packed sky", cubemap.packed, (size,), torch.int32, dev)
+        return cubemap.packed.data_ptr(), None, None, None, cubemap.h, cubemap.w
+    for name, t in (("sky r", cubemap.r), ("sky g", cubemap.g), ("sky b", cubemap.b)):
+        _check_tensor(name, t, (size,), torch.float32, dev)
+    return (None, cubemap.r.data_ptr(), cubemap.g.data_ptr(), cubemap.b.data_ptr(),
+            cubemap.h, cubemap.w)
+
+
+def _launch_sky_compose(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool):
+    """Launch the forward CUDA kernel on PyTorch's current stream: the
+    arguments and results of sky_compose_plain. Without keep_state the sum
+    is added into `total` in place. Does not synchronise; raises when the
+    launch is refused."""
+    dev = planes.device
+    frame = tuple(planes.shape[1:])
+    _check_tensor("planes", planes, (10, *frame), torch.float32, dev)
+    if total is not None:
+        _check_tensor("running sum", total, (*frame, 3), torch.float32, dev)
+    if cache and (cubemap.packed is None or cubemap.h * cubemap.w == 1):
+        raise ValueError("a sky cache needs a packed sky larger than 1x1")
+    sky = _sky_pointers(cubemap, dev)
+    lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_sky_compose",
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    with torch.cuda.device(dev):
+        out = total if total is not None and not keep_state else torch.empty(
+            (*frame, 3), dtype=torch.float32, device=dev)
+        state = (torch.empty((sky_state_planes(cubemap), *frame), dtype=torch.int32, device=dev)
+                 if keep_state else None)
+        cached = None
+        if cache:
+            cached = (torch.empty(frame, dtype=torch.int32, device=dev),
+                      torch.empty(frame, dtype=torch.int32, device=dev),
+                      torch.empty(frame, dtype=torch.bool, device=dev))
+        err = fn(planes.data_ptr(), None if total is None else total.data_ptr(), out.data_ptr(),
+                 *sky, planes[0].numel(), None if state is None else state.data_ptr(),
+                 *((t.data_ptr() for t in cached) if cache else (None, None, None)),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "sky_compose")
+    launch_counts["sky_compose"] += 1
+    return out, state, cached
+
+
+def _launch_sky_compose_adjoint(g_total, state, cubemap: CubemapData):
+    """Launch the adjoint CUDA kernel on PyTorch's current stream: the
+    (10,H,W) cotangent of sky_compose_adjoint_plain. Does not synchronise;
+    raises when the launch is refused."""
+    dev = state.device
+    frame = tuple(state.shape[1:])
+    _check_tensor("state", state, (sky_state_planes(cubemap), *frame), torch.int32, dev)
+    # autograd may hand over an expanded or strided cotangent
+    g_total = g_total.contiguous()
+    _check_tensor("running sum's cotangent", g_total, (*frame, 3), torch.float32, dev)
+    sky = _sky_pointers(cubemap, dev)
+    lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_sky_compose_adjoint",
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    with torch.cuda.device(dev):
+        g_planes = torch.empty((10, *frame), dtype=torch.float32, device=dev)
+        err = fn(g_total.data_ptr(), state.data_ptr(), *sky, state[0].numel(),
+                 g_planes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "sky_compose_adjoint")
+    launch_counts["sky_compose_adjoint"] += 1
+    return g_planes
+
+
+def _sky_compose_forward(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool):
+    """The forward CUDA kernel for planes on the card, its plain version for
+    planes on the CPU. Nothing else decides between them."""
+    if planes.device.type == "cuda":
+        return _launch_sky_compose(planes, total, cubemap, cache, keep_state)
+    if planes.device.type != "cpu":
+        raise ValueError(f"unsupported device {planes.device}")
+    out, state, cached = sky_compose_plain(planes, total, cubemap, cache, keep_state)
+    if total is not None and not keep_state:
+        out = total.copy_(out)
+    return out, state, cached
+
+
+class SkyComposeFunction(torch.autograd.Function):
+    """One sample's sky lookup, compose and running sum as a differentiable
+    function of its (10,H,W) planes and the (H,W,3) running sum before it
+    (None for the first sample). The sky is constant.
+
+    forward: the forward kernel (sky_compose_plain on the CPU), keeping the
+    sample's compact state (sky_state_planes planes a pixel) and no view of
+    the planes; with `cache` it also returns the sky cache, not
+    differentiable. backward: the adjoint kernel (sky_compose_adjoint_plain
+    on the CPU) writes the planes' cotangent; the running sum's passes
+    through."""
+
+    @staticmethod
+    def forward(ctx, planes, total, cubemap, cache):
+        out, state, cached = _sky_compose_forward(
+            planes.detach(), None if total is None else total.detach(), cubemap, cache,
+            keep_state=True)
+        ctx.save_for_backward(state)
+        ctx.cubemap = cubemap
+        ctx.chained = total is not None
+        if not cache:
+            return out
+        ctx.mark_non_differentiable(*cached)
+        return (out, *cached)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_total, *_):
+        (state,) = ctx.saved_tensors
+        with span("kernel.sky_compose_adjoint"):
+            if state.device.type == "cuda":
+                g_planes = _launch_sky_compose_adjoint(g_total, state, ctx.cubemap)
+            else:
+                g_planes = sky_compose_adjoint_plain(g_total, state, ctx.cubemap)
+        return g_planes, (g_total if ctx.chained else None), None, None
+
+
+def sky_compose(planes, total, cubemap: CubemapData, cache: bool = False):
+    """(total + rgb, sky cache or None): one sample's nearest-texel sky
+    lookup, compose_sky and running sum (sky_compose_plain says what each
+    argument is). Through SkyComposeFunction where the planes or the sum
+    require grad; otherwise the forward alone, adding into `total` in
+    place."""
+    if torch.is_grad_enabled() and (planes.requires_grad
+                                    or (total is not None and total.requires_grad)):
+        outs = SkyComposeFunction.apply(planes, total, cubemap, cache)
+        return (outs[0], outs[1:]) if cache else (outs, None)
+    out, _, cached = _sky_compose_forward(planes, total, cubemap, cache, keep_state=False)
+    return out, cached
+
+
 def sky_cache_capable(config: RenderConfig, cubemap: CubemapData) -> bool:
     """Whether a render can keep a sky cache: the nearest-texel lookup of a
     packed cubemap larger than 1x1."""
@@ -1145,7 +1406,8 @@ def frame_sample_seeds(seed: int, spp: int, first_sample: int = 0,
 
 def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
                  cubemap: CubemapData, row0: int = 0, sky_cached: bool = False,
-                 sky_cache=None, first_sample: int = 0, frame_spp: int | None = None):
+                 sky_cache=None, first_sample: int = 0, frame_spp: int | None = None,
+                 plain_sky: bool = False):
     """((H, W, 3) image, sky cache): `spp` samples through `tiles_fn`, each
     composed with its sky and clipped BEFORE the average; the samples are
     first_sample .. of a frame of `frame_spp` (frame_sample_seeds). With
@@ -1166,16 +1428,23 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
     equal texel indices. The cache returned is None where none was kept; a
     threaded cache comes back as it was given.
 
-    Each sample opens a span "sky_lookup" (texel index, gather and unpack;
-    `texels` counts the texels gathered: every pixel's in a full gather, the
-    fresh blocks' in a sparse one) and a span "compose" (compose_sky and the
-    running sum); the frame ends in a span "average"."""
+    Where fused_sky_compose holds and `plain_sky` is off, each sample's sky
+    lookup, compose and running sum are one sky_compose in a span "compose"
+    that counts the `texels` gathered (one a pixel). The caller picks the
+    sky step as it picks `tiles_fn`: the plain reference render_image
+    passes plain_sky=True, so that its frame holds the kernel to the plain
+    lookup on any device. Otherwise each sample opens a span
+    "sky_lookup" (texel index, gather and unpack; `texels` counts the texels
+    gathered: every pixel's in a full gather, the fresh blocks' in a sparse
+    one) and a span "compose" (compose_sky and the running sum). The frame
+    ends in a span "average"."""
     if spp < 1:
         raise ValueError("spp must be at least 1")
     cfg = job.config
     seeds = frame_sample_seeds(seed, spp, first_sample, frame_spp)
     use_cache = (sky_cached and sky_cache_capable(cfg, cubemap)
                  and (spp > 1 or sky_cache is not None))
+    fused = not plain_sky and fused_sky_compose(cfg, cubemap)
     sparse = use_cache and cfg.sky_sparse_gather
     pixels = job.height * job.width
     # the sparse lookup counts its texels itself (ops/cubemap.py)
@@ -1185,13 +1454,18 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
         budget = max(int(pixels * cfg.sky_sparse_budget_frac) // SPARSE_BLOCK, 256)
         if sky_cache is None:
             planes, _ = tiles_fn(job, seeds[0], row0)
-            with span("sky_lookup", **gathered):
-                flat0, miss0 = _miss_texel_index(cubemap, planes)
-                packed0 = (sparse_sky_lookup(cubemap, flat0, miss0, budget=budget) if sparse
-                           else gather_texels(cubemap, flat0, miss0))
-                sky = unpack_texels(packed0)
-            with span("compose"):
-                total = compose_sky(planes, sky)
+            if fused:
+                with span("compose", texels=pixels):
+                    total, (flat0, packed0, miss0) = sky_compose(planes, None, cubemap,
+                                                                 cache=True)
+            else:
+                with span("sky_lookup", **gathered):
+                    flat0, miss0 = _miss_texel_index(cubemap, planes)
+                    packed0 = (sparse_sky_lookup(cubemap, flat0, miss0, budget=budget) if sparse
+                               else gather_texels(cubemap, flat0, miss0))
+                    sky = unpack_texels(packed0)
+                with span("compose"):
+                    total = compose_sky(planes, sky)
             seeds = seeds[1:]
         else:
             flat0, packed0, miss0 = sky_cache
@@ -1201,6 +1475,10 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
         cache = (flat0, packed0, miss0)
     for s in seeds:
         planes, _ = tiles_fn(job, s, row0)
+        if fused:
+            with span("compose", texels=pixels):
+                total, _ = sky_compose(planes, total, cubemap)
+            continue
         if sparse:
             with span("sky_lookup"):
                 flat, miss = _miss_texel_index(cubemap, planes)
@@ -1215,8 +1493,10 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
         if spp > 1:
             total = total * (1.0 / spp)
         if cfg.soft_silhouette_temp > 0:
+            if fused:
+                total = Vec3(*total.unbind(-1))
             total = _soft_silhouettes(job, total, cubemap, row0)
-        return total.to_array(), cache
+        return (total.to_array() if isinstance(total, Vec3) else total), cache
 
 
 def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
@@ -1227,8 +1507,9 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
                       aspect: float | None = None, sky_cache=None,
                       return_sky_cache: bool = False, first_sample: int = 0,
                       frame_spp: int | None = None, device=None):
-    """Full render through the CUDA megakernel plus the sky lookup in
-    PyTorch: (height, width, 3) float32 in [0, 1] on the device.
+    """Full render through the CUDA megakernel and, per sample, the sky
+    compose kernel (sky_compose; the plain lookup for a bilinear sky or the
+    sparse lookup): (height, width, 3) float32 in [0, 1] on the device.
 
     Takes the statistics of render_image (render/integrator.py) and the
     very same random numbers. Differentiable end to end: when a leaf of

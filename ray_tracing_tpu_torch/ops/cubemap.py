@@ -11,9 +11,12 @@ is zero, which makes the arithmetic right shifts safe. Float cubemaps
 (procedural skies) keep three channel planes. 1x1 cubemaps (constant or
 per-face colours) are read with a 6-way select and no indexing.
 
-The sky lookup runs as PyTorch indexing outside the CUDA kernel, on the
-miss directions the kernel returns; ``sparse_sky_lookup`` is the exact
-lookup that gathers only the texels a cache of an earlier sample lacks.
+On the card the nearest lookup of a render runs inside the sky compose
+kernel (kernels/csrc/sky_compose.cu), which repeats face_uv and
+texel_flat_index; these functions are its plain reference and the lookup of
+the bilinear filter, run as PyTorch indexing on the miss directions the
+megakernel returns. ``sparse_sky_lookup`` is the exact lookup that gathers
+only the texels a cache of an earlier sample lacks.
 """
 
 from __future__ import annotations

@@ -4,10 +4,12 @@ the plain estimator.
 Counterpart of ``ray_tracing_tpu/render/integrator.py::render_image``. One
 estimator serves both of the port's renderers: ``render_image`` here and
 ``render_image_cuda`` (kernels/megakernel.py) share the packed scene, the
-random numbers, the sky lookup and the compose step, and differ only in
+random numbers and the frame's loop (``render_frame``), and differ in
 whether a sample's ten planes come from ``tile_physics`` in PyTorch or from
-the CUDA kernel. This is the CPU path (``--device cpu`` of the CLI) and what
-the kernel is held against. ``render_pixels`` is the reference's pixel()
+the CUDA kernel, and in the sky step: ``render_image`` always takes the
+plain lookup and ``compose_sky``, where ``render_image_cuda`` takes the sky
+compose kernel for the nearest filter. This is the CPU path (``--device
+cpu`` of the CLI) and what the kernels are held against. ``render_pixels`` is the reference's pixel()
 at arbitrary screen coordinates through the same estimator.
 
 ``soft_silhouette_composite`` (training only; ``config.soft_silhouette_temp``)
@@ -54,14 +56,17 @@ def render_image(scene: Scene, camera: Camera, width: int, height: int,
                  device=None):
     """Render a (height, width, 3) float32 frame in [0, 1], averaging `spp`
     samples, with plain PyTorch ops on `device`. Same arguments and, seed
-    for seed, the same random numbers as render_image_cuda. device=None
-    means the card and raises without one; device="cpu" is the CPU path."""
+    for seed, the same random numbers as render_image_cuda, and no kernel
+    on any device: the sky of each sample through sample_cubemap and
+    compose_sky. device=None means the card and raises without one;
+    device="cpu" is the CPU path."""
     device = resolve_device(device)
     if cubemap is None:
         cubemap = constant_sky(device=device)
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
-    return render_frame(job, run_tiles_plain, seed, spp, cubemap.to(device), row0)[0]
+    return render_frame(job, run_tiles_plain, seed, spp, cubemap.to(device), row0,
+                        plain_sky=True)[0]
 
 
 def render_pixels(scene: Scene, camera: Camera, u, v, aspect_ratio: float, seed: int = 0,

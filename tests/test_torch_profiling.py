@@ -45,11 +45,16 @@ def tree(spans):
     return [(name, parent, counts) for name, _, _, _, parent, counts in spans]
 
 
-def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H):
+def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H, fused=True):
     """(name, parent, counts) of the spans of one SPP-sample W x H frame
-    whose render_image is span number `root`, inside span `parent`."""
-    sample = [(kernel, root, {}), ("sky_lookup", root, {"texels": texels}),
-              ("compose", root, {})]
+    whose render_image is span number `root`, inside span `parent`. With
+    `fused` (kernels/megakernel.py::fused_sky_compose) a sample's sky lookup
+    and compose are one span "compose" that counts the texels."""
+    if fused:
+        sample = [(kernel, root, {}), ("compose", root, {"texels": texels})]
+    else:
+        sample = [(kernel, root, {}), ("sky_lookup", root, {"texels": texels}),
+                  ("compose", root, {})]
     return ([("render_image", parent, {"pixels": W * H, "samples": SPP}),
              ("tile_job", root, {})] + sample * SPP + [("average", root, {})])
 
@@ -62,17 +67,17 @@ def test_no_profiler_records_nothing():
     assert profiling.recorded() == [] and profiling.dropped() == 0
 
 
-@pytest.mark.parametrize("sky,config,per_pixel", [
-    ("constant", RenderConfig(), 1),
-    ("checker", RenderConfig(), 1),                         # the sky cache, full gather
-    ("checker", RenderConfig(sky_sparse_gather=True), 1),  # 192 pixels: the full arm
-    ("checker", RenderConfig(env_filter="bilinear"), 4),   # no cache, 4 texels a pixel
+@pytest.mark.parametrize("sky,config,per_pixel,fused", [
+    ("constant", RenderConfig(), 1, True),
+    ("checker", RenderConfig(), 1, True),                          # the sky cache
+    ("checker", RenderConfig(sky_sparse_gather=True), 1, False),  # 192 pixels: the full arm
+    ("checker", RenderConfig(env_filter="bilinear"), 4, False),   # no cache, 4 texels a pixel
 ])
-def test_frame_records_its_span_tree(sky, config, per_pixel):
+def test_frame_records_its_span_tree(sky, config, per_pixel, fused):
     with torch.profiler.profile(activities=CPU):
         frame(sky, config)
     spans = profiling.recorded()
-    assert tree(spans) == frame_tree(texels=W * H * per_pixel)
+    assert tree(spans) == frame_tree(texels=W * H * per_pixel, fused=fused)
     assert all(end is not None and start <= end for _, start, end, *_ in spans)
     assert len({tid for *_, tid, _, _ in spans}) == 1
 
@@ -92,19 +97,25 @@ def test_train_step_records_its_span_tree(mode, fwd):
         step(params, target, 5)
     head = [("train_step", -1, {}), ("step.params", 0, {}), ("step.forward", 0, {})]
     head += frame_tree(root=3, parent=2, kernel=fwd) + [("step.loss", 0, {})]
+    # each sample's compose adjoint, then its megakernel's backward
     want = (head + [("step.backward", 0, {})]
-            + [("kernel.megakernel_bwd_" + mode, len(head), {})] * SPP
+            + [("kernel.sky_compose_adjoint", len(head), {}),
+               ("kernel.megakernel_bwd_" + mode, len(head), {})] * SPP
             + [("step.optimizer", 0, {})])
     assert tree(profiling.recorded()) == want
 
 
-def test_spans_enclose_the_aten_events_they_issued():
+@pytest.mark.parametrize("config,lookup", [(RenderConfig(), ()),
+                                           (RenderConfig(env_filter="bilinear"), ("sky_lookup",))],
+                         ids=["fused", "bilinear"])
+def test_spans_enclose_the_aten_events_they_issued(config, lookup):
     """The spans' clock is the profiler's: every aten:: event whose middle
     falls in a span starts and ends inside it, and each span that issues
-    tensor work holds some."""
-    frame()  # the first frame's one-time work stays out of the profile
+    tensor work holds some (a "sky_lookup" span only where the bilinear
+    filter keeps the plain lookup)."""
+    frame(config=config)  # the first frame's one-time work stays out of the profile
     with torch.profiler.profile(activities=CPU) as prof:
-        frame()
+        frame(config=config)
     spans = profiling.recorded()
     events = [(e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
               if e.name().startswith("aten::")]
@@ -116,7 +127,7 @@ def test_spans_enclose_the_aten_events_they_issued():
                 assert s0 <= e0 and e1 <= s1, (name, ename, e0 - s0, s1 - e1)
                 held[name] += 1
     assert all(held[n] for n in ("render_image", "tile_job", "kernel.megakernel_fwd",
-                                 "sky_lookup", "compose", "average")), held
+                                 "compose", "average", *lookup)), held
 
 
 def test_the_cap_drops_spans_and_counts_them(monkeypatch):

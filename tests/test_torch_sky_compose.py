@@ -1,0 +1,508 @@
+"""One sample's sky lookup, compose and running sum as one step
+(kernels/megakernel.py::sky_compose, SkyComposeFunction, csrc/sky_compose.cu)
+against the plain lookup and compose it replaces (ops/cubemap.py::
+sample_cubemap, kernels/megakernel.py::compose_sky) differentiated by
+autograd.
+
+Tolerance: none on frames, sky caches and the cotangents of the radiance
+and throughput planes, which repeat autograd's operations one for one
+(the clip's tie rule included). The miss plane's cotangent sums three
+channels' terms, in an order autograd does not fix: within 1e-6 of the sum
+of their magnitudes, which bounds the rounding of any order of a float32
+sum of three terms (about 1.2e-7 of it) where a relative error of the sum
+itself has no bound (the terms may cancel).
+
+The tests at the end need the card (marker `gpu`) and import nothing of
+JAX, so that they run there (`python -m pytest tests/test_torch_sky_compose.py
+--noconftest -m gpu`): the kernels against the plain version and the plain
+lookup, bit for bit, and gradients through render_image_cuda.
+"""
+
+import dataclasses
+import gc
+import weakref
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tracing_tpu_torch.config import RenderConfig
+from ray_tracing_tpu_torch.kernels import megakernel as mk
+from ray_tracing_tpu_torch.ops import cubemap as tcm
+from ray_tracing_tpu_torch.ops.vec import Vec3
+from ray_tracing_tpu_torch.render.camera import Camera
+from ray_tracing_tpu_torch.scene.parser import parse_scene_string
+from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT
+
+H, W = 12, 16
+MISS_RTOL = 1e-6
+ROWS_RTOL, ROWS_ATOL = 2e-3, 2e-4  # tests/test_torch_backward.py's: K3 sums with atomics
+
+
+def packed_sky(size, device="cpu"):
+    faces = np.random.default_rng(size).integers(0, 256, (6, size, size, 3), dtype=np.uint8)
+    return tcm.CubemapData.from_faces(faces, device=device)
+
+
+def float_sky(size, device="cpu"):
+    faces = np.random.default_rng(10 + size).uniform(0.0, 1.5, (6, size, size, 3))
+    return tcm.CubemapData.from_faces(faces.astype(np.float32), device=device)
+
+
+SKIES = {
+    "packed": lambda device="cpu": packed_sky(8, device),
+    "packed_1x1": lambda device="cpu": packed_sky(1, device),
+    "float": lambda device="cpu": float_sky(8, device),
+    "float_1x1": lambda device="cpu": tcm.constant_sky((0.25, 0.5, 2.0), device=device),
+}
+
+
+def sample_planes(seed, device="cpu"):
+    """(10,H,W) planes as the forward kernel writes them, with the cases the
+    compose must keep: misses and hits, directions on the cube's edges and
+    corners (axis ties, the |x| == |y|, z == 0 saturation), and pre-clip
+    values exactly 0 and 1 and out of range."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(3, H, W))
+    d /= np.linalg.norm(d, axis=0)
+    ties = [(1, 1, 0), (-1, 1, 0), (1, -1, 0), (1, 1, 1), (0, 0, 1), (0, -1, 0), (1, 0, -1),
+            (-1, -1, -1), (0.5, 0.5, -0.5)]
+    for j, t in enumerate(ties):
+        d[:, 0, j] = t
+    rgb = rng.uniform(-0.5, 1.5, (3, H, W))
+    c = rng.uniform(0.0, 2.0, (3, H, W))
+    miss = (rng.uniform(size=(H, W)) < 0.6).astype(np.float64)
+    rgb[:, 1, :4] = [[0.0], [1.0], [0.0]]   # hit pixels whose sum sits on a bound
+    miss[1, :4] = 0.0
+    rgb[:, 2, :4] = [[1.0], [0.0], [1.0]]   # misses with no throughput left: on a bound too
+    c[:, 2, :4] = 0.0
+    miss[2, :4] = 1.0
+    planes = np.concatenate([rgb, d, c, miss[None]]).astype(np.float32)
+    return torch.from_numpy(planes).to(device)
+
+
+def reference(planes, total, cubemap, cache=False):
+    """sample_cubemap and compose_sky (gather_texels' zeros where the path
+    did not miss, for a cache's sample 0), added into `total`: the plain
+    path the fused step replaces."""
+    if cache:
+        flat, miss = mk._miss_texel_index(cubemap, planes)
+        packed = tcm.gather_texels(cubemap, flat, miss)
+        sky = tcm.unpack_texels(packed)
+    else:
+        sky = tcm.sample_cubemap(cubemap, Vec3(planes[3], planes[4], planes[5]))
+    rgb = mk.compose_sky(planes, sky).to_array()
+    out = rgb if total is None else total + rgb
+    return (out, (flat, packed, miss)) if cache else (out, None)
+
+
+def cotangent(seed, device="cpu"):
+    g = torch.from_numpy(np.random.default_rng(seed).normal(size=(H, W, 3)).astype(np.float32))
+    return g.to(device)
+
+
+def miss_terms_scale(g_planes, planes, cubemap, cache=False):
+    """Per pixel the sum over the channels of |(g * w) * (sky * c)|: the
+    magnitudes of the terms the miss plane's cotangent sums (g * w is the
+    radiance planes' cotangent)."""
+    _, state, _ = mk.sky_compose_plain(planes, None, cubemap, cache, keep_state=True)
+    sky = mk._state_sky(state, cubemap)
+    return sum((g_planes[ch] * (s * planes[6 + ch])).abs()
+               for ch, s in enumerate((sky.x, sky.y, sky.z)))
+
+
+def assert_cotangents(got, want, planes, cubemap, cache=False):
+    assert torch.equal(got[:9], want[:9])
+    scale = miss_terms_scale(got, planes, cubemap, cache)
+    assert ((got[9] - want[9]).abs() <= MISS_RTOL * scale).all()
+
+
+def reference_vjp(planes, total, cubemap, g, cache=False):
+    p = planes.clone().requires_grad_(True)
+    t = None if total is None else total.clone().requires_grad_(True)
+    out, _ = reference(p, t, cubemap, cache)
+    grads = torch.autograd.grad(out, [p] if t is None else [p, t], g)
+    return out.detach(), grads[0], (grads[1] if t is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# The plain version, on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("first", [True, False], ids=["first_sample", "running_sum"])
+def test_plain_forward_equals_the_lookup_and_compose(sky, first):
+    cubemap = SKIES[sky]()
+    planes = sample_planes(1)
+    total = None if first else torch.rand((H, W, 3), generator=torch.Generator().manual_seed(2))
+    want, _ = reference(planes, total, cubemap)
+    got, state, cached = mk.sky_compose_plain(planes, total, cubemap, keep_state=True)
+    assert torch.equal(got, want) and cached is None
+    assert state.dtype == torch.int32
+    assert tuple(state.shape) == (mk.sky_state_planes(cubemap), H, W)
+    assert mk.sky_state_planes(cubemap) == (5 if sky == "float" else 4)
+    hit_on_bound = (planes[9] == 0) & ((planes[0] == 0) | (planes[0] == 1))
+    assert hit_on_bound.any()
+
+
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("first", [True, False], ids=["first_sample", "running_sum"])
+def test_plain_adjoint_equals_autograd(sky, first):
+    cubemap = SKIES[sky]()
+    planes = sample_planes(3)
+    total = None if first else torch.rand((H, W, 3), generator=torch.Generator().manual_seed(4))
+    g = cotangent(5)
+    want_out, want_gp, want_gt = reference_vjp(planes, total, cubemap, g)
+    p = planes.clone().requires_grad_(True)
+    t = None if total is None else total.clone().requires_grad_(True)
+    out, cached = mk.sky_compose(p, t, cubemap)
+    assert cached is None and torch.equal(out.detach(), want_out)
+    grads = torch.autograd.grad(out, [p] if t is None else [p, t], g)
+    assert_cotangents(grads[0], want_gp, planes, cubemap)
+    assert not grads[0][3:6].any()
+    if t is not None:
+        assert torch.equal(grads[1], want_gt)
+    # the tie rule reached half a cotangent somewhere, and a full one
+    half = grads[0][:3] == 0.5 * g.permute(2, 0, 1)
+    assert (half & (g.permute(2, 0, 1) != 0)).any()
+
+
+def test_the_first_sample_of_a_cached_frame_writes_the_cache():
+    cubemap = SKIES["packed"]()
+    planes = sample_planes(6)
+    g = cotangent(7)
+    want_out, want_cache = reference(planes, None, cubemap, cache=True)
+    for grad in (False, True):
+        p = planes.clone().requires_grad_(grad)
+        out, cached = mk.sky_compose(p, None, cubemap, cache=True)
+        assert torch.equal(out.detach(), want_out)
+        assert all(torch.equal(a, b) for a, b in zip(cached, want_cache))
+        assert [t.dtype for t in cached] == [torch.int32, torch.int32, torch.bool]
+        assert not any(t.requires_grad for t in cached)
+        if grad:
+            (gp,) = torch.autograd.grad(out, [p], g)
+            assert_cotangents(gp, reference_vjp(planes, None, cubemap, g, cache=True)[1],
+                              planes, cubemap, cache=True)
+
+
+def test_without_grad_the_sum_is_added_in_place():
+    cubemap = SKIES["packed"]()
+    planes = sample_planes(8)
+    total = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(9))
+    want, _ = reference(planes, total, cubemap)
+    with torch.no_grad():
+        out, _ = mk.sky_compose(planes, total, cubemap)
+    assert out is total and torch.equal(total, want)
+
+
+def test_the_state_word_holds_texel_clip_codes_and_miss():
+    cubemap = SKIES["packed"]()
+    planes = sample_planes(10)
+    _, state, _ = mk.sky_compose_plain(planes, None, cubemap, keep_state=True)
+    word = state[0]
+    assert (word >= 0).all()  # bit 31 stays clear
+    flat = tcm.texel_flat_index(cubemap, Vec3(planes[3], planes[4], planes[5]))
+    assert torch.equal(word & mk.SKY_TEXEL_MASK, cubemap.packed[flat.long()])
+    assert torch.equal((word & mk.SKY_MISS_BIT) != 0, planes[9] > 0.5)
+    codes = (word >> mk.SKY_CLIP_SHIFT) & 3
+    assert set(codes.unique().tolist()) == {0, mk.SKY_CLIP_HALF, mk.SKY_CLIP_FULL}
+    assert torch.equal(state[1:4].view(torch.float32), planes[6:9])
+
+
+# ---------------------------------------------------------------------------
+# Frames through render_frame, on the CPU
+# ---------------------------------------------------------------------------
+
+
+def unfused_frame(job, seed, spp, cubemap):
+    """A frame through run_tiles_grad and compose (the plain lookup), summed
+    in sample order: what render_frame computed before the fused step."""
+    total = None
+    for s in mk.frame_sample_seeds(seed, spp):
+        planes, _ = mk.run_tiles_grad(job, s, 0)
+        rgb = mk.compose(planes, cubemap, job.config)
+        total = rgb if total is None else total + rgb
+    if spp > 1:
+        total = total * (1.0 / spp)
+    return total.to_array()
+
+
+def unfused_frame_plain(job, seed, spp, cubemap):
+    """unfused_frame with the plain version of the megakernel (no kernel on
+    any device)."""
+    total = None
+    for s in mk.frame_sample_seeds(seed, spp):
+        planes, _ = mk.run_tiles_plain(job, s, 0)
+        rgb = mk.compose(planes, cubemap, job.config)
+        total = rgb if total is None else total + rgb
+    if spp > 1:
+        total = total * (1.0 / spp)
+    return total.to_array()
+
+
+def scene_with_leaves(text, device):
+    scene = parse_scene_string(text, device=device)
+    leaves = {"albedo": scene.albedo.clone().requires_grad_(True),
+              "p0": scene.p0.clone().requires_grad_(True)}
+    return dataclasses.replace(scene, **leaves), leaves
+
+
+def frame_and_gradients(render, scene, leaves, target):
+    img = render(scene)
+    loss = ((img - target) ** 2).sum()
+    return img.detach(), torch.autograd.grad(loss, list(leaves.values()))
+
+
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("text", [SCENE_2_TEXT, ROOM_TEXT], ids=["scene_2", "room"])
+def test_frames_and_gradients_equal_the_unfused_path(text, sky):
+    cfg = RenderConfig(bounces=3, shadow_samples=1)
+    cubemap = SKIES[sky]()
+    scene, leaves = scene_with_leaves(text, "cpu")
+    cam = Camera.default("cpu")
+    target = torch.full((H, W, 3), 0.4)
+    job = mk.make_tile_job(scene, cam, W, H, cfg)
+    got = frame_and_gradients(lambda s: mk.render_image_cuda(
+        s, cam, W, H, seed=7, spp=3, config=cfg, cubemap=cubemap, device="cpu"),
+        scene, leaves, target)
+    want = frame_and_gradients(lambda s: unfused_frame(job, 7, 3, cubemap), scene, leaves,
+                               target)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+
+
+def count_sky_steps(monkeypatch):
+    """Calls of sky_compose and of compose_sky, counted as they happen."""
+    calls = {"fused": 0, "compose_sky": 0}
+    orig_fused, orig_compose = mk.sky_compose, mk.compose_sky
+
+    def spy_fused(*a, **k):
+        calls["fused"] += 1
+        return orig_fused(*a, **k)
+
+    def spy_compose(*a, **k):
+        calls["compose_sky"] += 1
+        return orig_compose(*a, **k)
+
+    monkeypatch.setattr(mk, "sky_compose", spy_fused)
+    monkeypatch.setattr(mk, "compose_sky", spy_compose)
+    return calls
+
+
+@pytest.mark.parametrize("cfg,fused", [
+    (RenderConfig(), True),
+    (RenderConfig(env_filter="bilinear"), False),
+    (RenderConfig(sky_sparse_gather=True), False),
+])
+def test_which_path_runs(cfg, fused, monkeypatch):
+    """The fused step for the nearest lookup; the bilinear filter and the
+    sparse lookup keep sample_cubemap / sparse_sky_lookup and compose_sky.
+    The CPU launches no kernel."""
+    calls = count_sky_steps(monkeypatch)
+    assert mk.fused_sky_compose(cfg, SKIES["packed"]()) is fused
+    scene = parse_scene_string(SCENE_2_TEXT, device="cpu")
+    mk.reset_launch_counts()
+    mk.render_image_cuda(scene, Camera.default("cpu"), W, H, seed=1, spp=3,
+                         config=cfg.replace(bounces=2), cubemap=SKIES["packed"](), device="cpu")
+    assert calls == ({"fused": 3, "compose_sky": 0} if fused else {"fused": 0, "compose_sky": 3})
+    assert mk.launch_counts["sky_compose"] == mk.launch_counts["sky_compose_adjoint"] == 0
+
+
+@pytest.mark.parametrize("sky", list(SKIES))
+def test_the_plain_render_keeps_the_plain_lookup(sky, monkeypatch):
+    """render_image, the plain reference the kernels are held against, takes
+    sample_cubemap and compose_sky for every sample and never sky_compose,
+    and its frame is the unfused frame bit for bit."""
+    from ray_tracing_tpu_torch.render.integrator import render_image
+
+    cfg = RenderConfig(bounces=3, shadow_samples=1)
+    cubemap = SKIES[sky]()
+    scene = parse_scene_string(SCENE_2_TEXT, device="cpu")
+    cam = Camera.default("cpu")
+    calls = count_sky_steps(monkeypatch)
+    img = render_image(scene, cam, W, H, seed=7, spp=3, config=cfg, cubemap=cubemap,
+                       device="cpu")
+    assert calls == {"fused": 0, "compose_sky": 3}
+    job = mk.make_tile_job(scene, cam, W, H, cfg)
+    assert torch.equal(img, unfused_frame(job, 7, 3, cubemap))
+
+
+def test_a_sky_that_requires_grad_keeps_the_plain_lookup_and_gets_its_gradient(monkeypatch):
+    """sky_compose takes the sky as a constant: a float sky whose planes
+    require grad goes through sample_cubemap and compose_sky, and gets the
+    unfused frame's gradient."""
+    cfg = RenderConfig(bounces=3, shadow_samples=1)
+    scene = parse_scene_string(SCENE_2_TEXT, device="cpu")
+    cam = Camera.default("cpu")
+    target = torch.full((H, W, 3), 0.4)
+
+    def sky_and_leaves():
+        base = SKIES["float"]()
+        leaves = [base.r.clone().requires_grad_(True), base.g.clone().requires_grad_(True),
+                  base.b.clone().requires_grad_(True)]
+        return dataclasses.replace(base, r=leaves[0], g=leaves[1], b=leaves[2]), leaves
+
+    cubemap, leaves = sky_and_leaves()
+    assert not mk.fused_sky_compose(cfg, cubemap)
+    calls = count_sky_steps(monkeypatch)
+    img = mk.render_image_cuda(scene, cam, W, H, seed=7, spp=3, config=cfg, cubemap=cubemap,
+                               device="cpu")
+    got = torch.autograd.grad(((img - target) ** 2).sum(), leaves)
+    assert calls == {"fused": 0, "compose_sky": 3}
+    cubemap, leaves = sky_and_leaves()
+    job = mk.make_tile_job(scene, cam, W, H, cfg)
+    want_img = unfused_frame(job, 7, 3, cubemap)
+    want = torch.autograd.grad(((want_img - target) ** 2).sum(), leaves)
+    assert torch.equal(img.detach(), want_img.detach())
+    assert any(float(g.abs().max()) > 0 for g in want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def saved_planes_per_sample(width, height, spp):
+    """Planes of width x height float32 that the tensors autograd saved
+    still hold once the forward of a fetch frame of scene_2 is done, per
+    sample. A saved view counts its whole storage; a storage is counted
+    once, in whole planes (the scene rows and the camera pack hold none)."""
+    scene, leaves = scene_with_leaves(SCENE_2_TEXT, "cpu")
+    refs = []
+
+    def pack(t):
+        refs.append(weakref.ref(t))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        img = mk.render_image_cuda(scene, Camera.default("cpu"), width, height, seed=3, spp=spp,
+                                   config=RenderConfig(bwd_mode="fetch"),
+                                   cubemap=SKIES["packed"](), device="cpu")
+    gc.collect()
+    storages = {}
+    for r in refs:
+        t = r()
+        if t is not None:
+            s = t.untyped_storage()
+            storages[s.data_ptr()] = s.nbytes()
+    planes = sum(n // (width * height * 4) for n in storages.values())
+    assert img.requires_grad
+    return planes / spp
+
+
+def test_a_differentiated_frame_keeps_at_most_14_planes_a_sample():
+    """Ten planes of the fetch backward's winner indices (ten bounces, no
+    light) and four of the compose's state, and no view of the sample's
+    planes."""
+    assert saved_planes_per_sample(64, 48, 4) <= 14
+
+
+# ---------------------------------------------------------------------------
+# On the card (skipped where there is none)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("first", [True, False], ids=["first_sample", "running_sum"])
+def test_cuda_kernels_equal_the_plain_version(sky, first, cuda_device):
+    cubemap = SKIES[sky](cuda_device)
+    planes = sample_planes(11, cuda_device)
+    total = None if first else torch.rand((H, W, 3), device=cuda_device)
+    g = cotangent(12, cuda_device)
+    before = dict(mk.launch_counts)
+    out, state, _ = mk._launch_sky_compose(planes, total, cubemap, False, True)
+    g_planes = mk._launch_sky_compose_adjoint(g, state, cubemap)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["sky_compose"] == before["sky_compose"] + 1
+    assert mk.launch_counts["sky_compose_adjoint"] == before["sky_compose_adjoint"] + 1
+    w_out, w_state, _ = mk.sky_compose_plain(planes, total, cubemap, keep_state=True)
+    assert torch.equal(out, w_out) and torch.equal(state, w_state)
+    assert torch.equal(out, reference(planes, total, cubemap)[0])
+    assert torch.equal(g_planes, mk.sky_compose_adjoint_plain(g, state, cubemap))
+    assert_cotangents(g_planes, reference_vjp(planes, total, cubemap, g)[1], planes, cubemap)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_writes_the_cache_and_adds_in_place(cuda_device):
+    cubemap = SKIES["packed"](cuda_device)
+    planes = sample_planes(13, cuda_device)
+    want_out, want_cache = reference(planes, None, cubemap, cache=True)
+    with torch.no_grad():
+        out, cached = mk.sky_compose(planes, None, cubemap, cache=True)
+        assert torch.equal(out, want_out)
+        assert all(torch.equal(a, b) for a, b in zip(cached, want_cache))
+        again = out.clone()
+        out2, _ = mk.sky_compose(planes, out, cubemap)
+    assert out2 is out and torch.equal(out, reference(planes, again, cubemap)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sky", ["packed", "float_1x1"])
+@pytest.mark.parametrize("text", [SCENE_2_TEXT, ROOM_TEXT], ids=["scene_2", "room"])
+def test_cuda_frames_and_gradients_equal_the_unfused_path(text, sky, cuda_device):
+    cfg = RenderConfig(bounces=4, shadow_samples=2)
+    cubemap = SKIES[sky](cuda_device)
+    scene, leaves = scene_with_leaves(text, cuda_device)
+    cam = Camera.default(cuda_device)
+    width, height, spp = 96, 64, 4
+    target = torch.full((height, width, 3), 0.4, device=cuda_device)
+    job = mk.make_tile_job(scene, cam, width, height, cfg)
+    mk.reset_launch_counts()
+    got = frame_and_gradients(lambda s: mk.render_image_cuda(
+        s, cam, width, height, seed=7, spp=spp, config=cfg, cubemap=cubemap),
+        scene, leaves, target)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["sky_compose"] == spp
+    assert mk.launch_counts["sky_compose_adjoint"] == spp
+    want = frame_and_gradients(lambda s: unfused_frame(job, 7, spp, cubemap), scene, leaves,
+                               target)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        scale = b.abs().amax(dim=0, keepdim=True)
+        assert ((a - b).abs() <= ROWS_RTOL * b.abs() + ROWS_ATOL * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sky", ["packed", "float_1x1"])
+def test_cuda_plain_render_launches_no_kernel(sky, cuda_device):
+    """render_image on the card stays plain: no launch of any kernel, the
+    sky compose's included, so that a comparison with it holds the kernels
+    to plain code."""
+    from ray_tracing_tpu_torch.render.integrator import render_image
+
+    cfg = RenderConfig(bounces=4, shadow_samples=2)
+    cubemap = SKIES[sky](cuda_device)
+    scene = parse_scene_string(SCENE_2_TEXT, device=cuda_device)
+    cam = Camera.default(cuda_device)
+    before = dict(mk.launch_counts)
+    with torch.no_grad():
+        img = render_image(scene, cam, 96, 64, seed=7, spp=4, config=cfg, cubemap=cubemap)
+    torch.cuda.synchronize()
+    assert mk.launch_counts == before
+    job = mk.make_tile_job(scene, cam, 96, 64, cfg)
+    with torch.no_grad():
+        want = unfused_frame_plain(job, 7, 4, cubemap)
+    assert torch.equal(img, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,launches", [(RenderConfig(), 1),
+                                          (RenderConfig(env_filter="bilinear"), 0)])
+def test_cuda_launches_one_compose_a_sample(cfg, launches, cuda_device):
+    scene = parse_scene_string(SCENE_2_TEXT, device=cuda_device)
+    cubemap = packed_sky(64, cuda_device)
+    mk.reset_launch_counts()
+    with torch.no_grad():
+        img = mk.render_image_cuda(scene, Camera.default(cuda_device), 128, 96, seed=2, spp=8,
+                                   config=cfg, cubemap=cubemap)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["sky_compose"] == 8 * launches
+    assert mk.launch_counts["sky_compose_adjoint"] == 0
+    assert img.shape == (96, 128, 3) and img.is_contiguous()

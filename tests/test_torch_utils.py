@@ -133,7 +133,7 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(frame["ts"] <= e["ts"] and e["ts"] + e["dur"] <= frame["ts"] + frame["dur"]
                for e in cats)
     assert {e["name"] for e in events if e.get("cat") == "span"} >= {
-        "tile_job", "kernel.megakernel_fwd", "sky_lookup", "compose", "average"}
+        "tile_job", "kernel.megakernel_fwd", "compose", "average"}
 
 
 def test_environment_fingerprint_on_the_cpu():
