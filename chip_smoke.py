@@ -62,6 +62,8 @@ import time
 import numpy as np
 import torch
 
+from portbench import sky_work
+from portbench.reference.pathtracer import V as RefV
 from ray_tracing_tpu_torch import bench, native
 from ray_tracing_tpu_torch.apps.cli import FULL_RES_SPP, make_cuda_render_fn
 from ray_tracing_tpu_torch.apps.cli import main as cli_main
@@ -85,8 +87,15 @@ from ray_tracing_tpu_torch.io.image import (
 )
 from ray_tracing_tpu_torch.kernels import build, peak
 from ray_tracing_tpu_torch.kernels import megakernel as mk
-from ray_tracing_tpu_torch.ops.cubemap import CubemapData, checker_sky, constant_sky
+from ray_tracing_tpu_torch.ops.cubemap import (
+    CubemapData,
+    bilinear_adjoint_scale,
+    checker_sky,
+    constant_sky,
+    gradient_sky,
+)
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
+from ray_tracing_tpu_torch.ops.vec import Vec3
 from ray_tracing_tpu_torch.parallel.distributed import global_mesh, initialize, local_tile_range
 from ray_tracing_tpu_torch.parallel.mesh import make_mesh
 from ray_tracing_tpu_torch.parallel.render import render_image_sharded
@@ -253,6 +262,10 @@ def _ptxas_report(log: str) -> dict:
                 current = "gather_probe_staged"
             elif "gather_kernel" in sym:
                 current = "gather_probe"
+            elif "sky_compose_bilinear_adjoint_kernel" in sym:
+                current = "sky_compose_bilinear_adjoint"
+            elif "sky_compose_bilinear_kernel" in sym:
+                current = "sky_compose_bilinear"
             elif "sky_compose_adjoint_kernel" in sym:
                 current = "sky_compose_adjoint"
             elif "sky_compose_kernel" in sym:
@@ -413,12 +426,13 @@ def phase_build() -> dict:
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
     # each winner source; the FMA peak (K6), the gather (P1: a small table
     # staged in shared memory, or read through L1 and L2), and a sample's sky
-    # compose and its adjoint
+    # compose and its adjoint, at the nearest texel and bilinear
     if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay",
                                       "bwd_direct", "peak_fma", "gather_probe",
                                       "gather_probe_staged", "sky_compose",
-                                      "sky_compose_adjoint"}:
-        raise RuntimeError("expected ten kernels in the ptxas logs:\n"
+                                      "sky_compose_adjoint", "sky_compose_bilinear",
+                                      "sky_compose_bilinear_adjoint"}:
+        raise RuntimeError("expected twelve kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     # K6 must be fused multiply-adds although every library is built with
     # --fmad=false: the unrolled body alone holds 64 x 8 of them
@@ -901,6 +915,61 @@ def sky_compose_bound(cubemap, planes) -> dict:
             "adjoint_bound_ms": adj / PEAK_BYTES * 1e3, "adjoint_bytes": adj, "bound_by": "bytes"}
 
 
+def bilinear_sky_compose_bound(cubemap, planes) -> dict:
+    """The bound of the bilinear arms under grad (portbench/sky_work.py:
+    every plane byte once, each distinct 32-byte sector of the sky's
+    storage that the four texels of the sample's pixels lie in once) on one
+    sample added into a running sum, as the timed launches run."""
+    pixels = planes[0].numel()
+    with torch.no_grad():
+        n = sky_work.sectors(cubemap.w, RefV(planes[3], planes[4], planes[5]),
+                             planes=1 if cubemap.packed is not None else 3)
+    fwd, adj = sky_work.forward(pixels, n, sum_in=1.0), sky_work.adjoint(pixels, n)
+    return {"bound_ms": fwd["bound_s"] * 1e3, "bytes": fwd["bytes"],
+            "adjoint_bound_ms": adj["bound_s"] * 1e3, "adjoint_bytes": adj["bytes"],
+            "bound_by": fwd["bound_by"]}
+
+
+def bilinear_vs_plain(planes, prev, g, cm) -> dict:
+    """The bilinear arms on one sample against their plain twin (sum, state,
+    cotangent bit for bit), the plain lookup and compose (sum bit for bit)
+    and autograd through it: the radiance and throughput planes bit for bit,
+    the miss plane within 1e-6 of its terms' magnitudes, the direction
+    planes within 2e-6 of bilinear_adjoint_scale
+    (tests/test_torch_sky_compose.py says why). Raises on a difference."""
+    cfg = RenderConfig(env_filter="bilinear")
+    got, state, _ = mk._launch_sky_compose(planes, prev, cm, False, True, bilinear=True)
+    g_planes = mk._launch_sky_compose_adjoint(g, state, cm, bilinear=True)
+    want, w_state, _ = mk.sky_compose_plain(planes, prev, cm, keep_state=True, bilinear=True)
+    w_g = mk.sky_compose_adjoint_plain(g, w_state, cm, bilinear=True)
+    p = planes.clone().requires_grad_(True)
+    lookup = prev + mk.compose(p, cm, cfg).to_array()
+    (a_g,) = torch.autograd.grad(lookup, [p], g)
+    s_ = mk._state_sky(state, cm, bilinear=True)
+    miss_scale = sum((g_planes[ch] * (c * planes[6 + ch])).abs()
+                     for ch, c in enumerate((s_.x, s_.y, s_.z)))
+    g_sky = Vec3(*(g_planes[ch] * planes[9] * planes[6 + ch] for ch in range(3)))
+    dir_scale = bilinear_adjoint_scale(cm, Vec3(planes[3], planes[4], planes[5]), g_sky)
+    miss_off = (g_planes[9] - a_g[9]).abs()
+    dir_off = (g_planes[3:6] - a_g[3:6]).abs()
+    equal = {"sum_vs_plain": torch.equal(got, want),
+             "sum_vs_lookup": torch.equal(got, lookup.detach()),
+             "state": torch.equal(state, w_state),
+             "cotangent_vs_plain": torch.equal(g_planes, w_g),
+             "cotangent_vs_autograd": torch.equal(g_planes[:3], a_g[:3])
+                                      and torch.equal(g_planes[6:9], a_g[6:9])}
+    res = {"sum_max_abs_err": float((got - lookup.detach()).abs().max()),
+           "cotangent_max_abs_err": float((g_planes - a_g).abs().max()),
+           "miss_cotangent_err_over_terms": float((miss_off / miss_scale.clamp_min(1e-30)).max()),
+           "direction_cotangent_err_over_terms": float((dir_off / dir_scale.clamp_min(1e-30)).max()),
+           "direction_share_equal_to_autograd": float((dir_off == 0).float().mean()),
+           "direction_cotangent_max_abs": float(a_g[3:6].abs().max())}
+    if (not all(equal.values()) or not bool((miss_off <= 1e-6 * miss_scale).all())
+            or not bool((dir_off <= 2e-6 * dir_scale).all())):
+        raise RuntimeError(f"bilinear sky compose: {equal}, {res}")
+    return res
+
+
 def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
     """The sky compose kernels (csrc/sky_compose.cu) on one sample of
     scene_2 and of the room at full size, added into a running sum, with the
@@ -913,9 +982,13 @@ def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
     magnitudes of the three channels' terms it adds, in another order
     (tests/test_torch_sky_compose.py says why). Then their times on the
     checker sky (no grad, in place; under grad, with the state; the
-    adjoint) beside the plain lookup and compose and the bound. Returns the
-    numbers per scene."""
+    adjoint) beside the plain lookup and compose and the bound. The bilinear
+    arms likewise (bilinear_vs_plain) on the checker sky and on invert's
+    32x32 float gradient sky, timed on the latter under grad with their
+    bound. Returns the numbers per scene."""
     cfg = RenderConfig()
+    grad_sky = gradient_sky(device=camera.device)
+    bil_cfg = RenderConfig(env_filter="bilinear")
     dev = camera.device
     skies = {"checker": sky, "constant": constant_sky((0.3, 0.5, 0.7), device=dev)}
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -960,6 +1033,20 @@ def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
             adjoint_ms=time_launches(lambda i: mk._launch_sky_compose_adjoint(g, state, sky), 50),
             plain_ms=time_launches(lambda i: prev + mk.compose(planes, sky, cfg).to_array(), 20),
             **sky_compose_bound(sky, planes))
+        bil = {n: bilinear_vs_plain(planes, prev, g, cm)
+               for n, cm in (("checker", sky), ("gradient", grad_sky))}
+        _, state, _ = mk._launch_sky_compose(planes, prev, grad_sky, False, True, bilinear=True)
+        bil.update(
+            kernel_ms=time_launches(lambda i: mk._launch_sky_compose(
+                planes, acc, grad_sky, False, False, bilinear=True), 50),
+            state_ms=time_launches(lambda i: mk._launch_sky_compose(
+                planes, prev, grad_sky, False, True, bilinear=True), 50),
+            adjoint_ms=time_launches(lambda i: mk._launch_sky_compose_adjoint(
+                g, state, grad_sky, bilinear=True), 50),
+            plain_ms=time_launches(
+                lambda i: prev + mk.compose(planes, grad_sky, bil_cfg).to_array(), 20),
+            **bilinear_sky_compose_bound(grad_sky, planes))
+        res["bilinear"] = bil
         out[name] = res
     emit("sky_compose_vs_plain", size=[WIDTH, HEIGHT], all_bit_equal=True,
          unit="ms per sample, median", **out)
@@ -1756,17 +1843,28 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
                                    * WIDTH * HEIGHT * 4,
         "albedo_grad_abs_sum": float(grads["albedo"].abs().sum())}
 
-    # (c) the invert app at its default size
+    # (c) the invert app at its defaults (96x64, 4 samples, 100 steps on p0,
+    # the bilinear gradient sky, soft silhouettes): the loss falls, p0's
+    # error shrinks, and each sample takes one bilinear sky compose and,
+    # under grad, one bilinear adjoint (the target's 4 samples have none)
     with tempfile.TemporaryDirectory() as tmp:
         scene_file = os.path.join(tmp, "scene_2.txt")
         with open(scene_file, "w") as f:
             f.write(SCENE_2_TEXT)
-        t0 = time.perf_counter()
-        rc = invert_main(["--scene", scene_file])
-        torch.cuda.synchronize()
-        if rc != 0:
-            raise RuntimeError(f"invert returned {rc}")
-        report["invert"] = {"seconds": round(time.perf_counter() - t0, 3)}
+        before = dict(mk.launch_counts)
+        secs, err = run_app(invert_main, ["--scene", scene_file])
+        rose = {k: mk.launch_counts[k] - before[k] for k in before}
+        loss = re.search(r"loss: ([-\d.e]+) -> ([-\d.e]+)", err)
+        p0 = re.search(r"p0: \|err\| ([\d.]+) -> ([\d.]+) \((\w+)", err)
+        if (rose["sky_compose_bilinear_adjoint"] != INVERT_STEPS * INVERT_SPP
+                or rose["sky_compose_bilinear"] != (INVERT_STEPS + 1) * INVERT_SPP
+                or rose["sky_compose"] or rose["sky_compose_adjoint"]
+                or not loss or not float(loss.group(2)) < float(loss.group(1))
+                or not p0 or p0.group(3) != "improved"):
+            raise RuntimeError(f"invert at its defaults: launches {rose}: {err[-1500:]}")
+        report["invert"] = {"seconds": round(secs, 3), "launches": rose,
+                            "loss": [float(loss.group(1)), float(loss.group(2))],
+                            "p0_abs_err": [float(p0.group(1)), float(p0.group(2))]}
 
     counts = dict(mk.launch_counts)  # read right after the training path
     for k in ("megakernel_fwd", "megakernel_fwd_record", *BWD_COUNTER.values()):
@@ -1840,6 +1938,8 @@ NORM_RATIO_TOL = 1e-3
 # bilinear sky and the soft silhouettes give p0 a gradient (with the default
 # nearest sky and hard edges it has none)
 SHARD_CFG = RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08)
+# the invert app's defaults (apps/invert.py)
+INVERT_STEPS, INVERT_SPP = 100, 4
 RESUME_STEPS, RESUME_EVERY = 10, 5
 RESUME_SPP = 2
 # a resumed fit's losses against an uninterrupted fit's: within this share
@@ -1963,7 +2063,8 @@ def phase_sharded_train(scenes, camera, sky) -> dict:
     l1, g1, c1, ms1 = sharded_step(start, camera, sky, target, mesh, 5, times=3)
     for counts, tiles in ((c0, 1), (c1, mesh.shape["tile"])):
         want = {**dict.fromkeys(counts, 0), "megakernel_fwd_record": tiles * SPP,
-                "megakernel_bwd_fetch": tiles * SPP}
+                "megakernel_bwd_fetch": tiles * SPP, "sky_compose_bilinear": tiles * SPP,
+                "sky_compose_bilinear_adjoint": tiles * SPP}
         if counts != want:
             raise RuntimeError(f"a train step over {tiles} tiles launched {counts}")
     report = compare_steps((l0, g0), (l1, g1), "sharded_train")
@@ -2711,9 +2812,36 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
         # bound counts each distinct 32-byte sector of the table once)
         "per_case": sky_res["cases"],
     })
-    for kname, ms, bound_key in (("sky_compose", "kernel_ms", "bound_ms"),
-                                 ("sky_compose_adjoint", "adjoint_ms", "adjoint_bound_ms")):
+    for kname, ms, bound_key, err_key in (
+            ("sky_compose", "kernel_ms", "bound_ms", "sum_max_abs_err"),
+            ("sky_compose_adjoint", "adjoint_ms", "adjoint_bound_ms", "cotangent_max_abs_err")):
         lead = sky_compose["scene_2"]
+        # the bilinear arms: timed under grad (the state written), the
+        # train step's case, on invert's 32x32 float sky
+        arm = {k: dict(r["bilinear"], kernel_ms=r["bilinear"]["state_ms"])
+               for k, r in sky_compose.items()}
+        bil_name = kname.replace("sky_compose", "sky_compose_bilinear")
+        rows.append({
+            "name": bil_name, "route": "cuda",
+            "source": "ray_tracing_tpu_torch/kernels/csrc/sky_compose.cu",
+            "registers": ptxas[bil_name]["registers"],
+            "replaces": "none: the bilinear sky lookup and compose that XLA fuses inside "
+                        "ray_tracing_tpu/kernels/megakernel.py::render_image_pallas",
+            # the invert app and the fits of the training path launch them
+            "launches": train_counts[bil_name],
+            "launches_by_path": {"serving": counts[bil_name], "training": train_counts[bil_name]},
+            # against the plain lookup and autograd through it, both skies
+            # (bilinear_vs_plain): the sum bit-equal, the cotangent off in
+            # the miss and direction planes within their tolerances
+            "max_abs_err": max(r["bilinear"][n][err_key] for r in sky_compose.values()
+                               for n in ("checker", "gradient")),
+            "ms": arm["scene_2"][ms], "plain_ms": arm["scene_2"]["plain_ms"],
+            "bound_ms": arm["scene_2"][bound_key], "bound_by": "bytes",
+            "library_ms": None,
+            "shape": [WIDTH, HEIGHT], "scene": "scene_2", "sky": "gradient_sky 32x32, float",
+            "per_scene": {n: {"ms": r[ms], "bound_ms": r[bound_key], "plain_ms": r["plain_ms"]}
+                          for n, r in arm.items()},
+        })
         rows.append({
             "name": kname, "route": "cuda",
             "source": "ray_tracing_tpu_torch/kernels/csrc/sky_compose.cu",

@@ -70,12 +70,13 @@ The wrappers (``run_tiles``, ``run_bwd``, ``sky_compose``) take a plain
 version only for tensors that lie on the CPU; on CUDA tensors they launch the
 kernel or raise.
 
-Each sample's nearest-texel sky lookup, compose and running sum is one launch
-of ``csrc/sky_compose.cu`` (``sky_compose``; plain version
+Each sample's sky lookup (nearest texel or bilinear), compose and running sum
+is one launch of ``csrc/sky_compose.cu`` (``sky_compose``; plain version
 ``sky_compose_plain``), which the JAX package leaves to XLA inside
 render_image_pallas; under grad ``SkyComposeFunction`` keeps four int32 planes
-a pixel (five for a float sky larger than 1x1) and its adjoint kernel writes
-the sample's (10,H,W) cotangent.
+a pixel (five for a float sky larger than 1x1 at the nearest texel, seven
+for the bilinear filter) and its adjoint kernel writes the sample's (10,H,W)
+cotangent, the bilinear filter's direction cotangent included.
 
 Gradients: ``render_image_cuda`` of a scene or camera whose leaves require
 grad is differentiable end to end. ``TilesFunction`` is the boundary: in
@@ -100,6 +101,8 @@ from ray_tracing_tpu_torch.kernels import build
 from ray_tracing_tpu_torch.ops.cubemap import (
     SPARSE_BLOCK,
     CubemapData,
+    bilinear_adjoint,
+    bilinear_terms,
     constant_sky,
     face_uv,
     gather_texels,
@@ -141,14 +144,16 @@ BWD_KERNELS = {
 }
 
 # How often each kernel was launched: one count per kernel (the forward's two
-# template instantiations count apart), raised where the launch happens and
-# nowhere else. run_tiles and run_bwd open a span "kernel.<key>" around each
-# call, so that a trace groups a kernel by the span that launched it; the
-# sky compose runs in render_frame's span "compose", its adjoint in
-# "kernel.sky_compose_adjoint".
+# template instantiations count apart, and so do the sky compose's nearest
+# and bilinear arms), raised where the launch happens and nowhere else.
+# run_tiles and run_bwd open a span "kernel.<key>" around each call, so that
+# a trace groups a kernel by the span that launched it; the sky compose
+# (either arm) runs in render_frame's span "compose", its adjoint (either
+# arm) in "kernel.sky_compose_adjoint".
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
                  **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS},
-                 "sky_compose": 0, "sky_compose_adjoint": 0}
+                 "sky_compose": 0, "sky_compose_adjoint": 0,
+                 "sky_compose_bilinear": 0, "sky_compose_bilinear_adjoint": 0}
 
 # Device memory the winner-index planes of one differentiated frame may take
 # (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
@@ -1130,20 +1135,27 @@ SKY_CLIP_FULL, SKY_CLIP_HALF = 2, 1  # 0: the clip passes no cotangent
 
 
 def fused_sky_compose(config: RenderConfig, cubemap: CubemapData) -> bool:
-    """Whether render_frame composes each sample through sky_compose: the
-    nearest-texel lookup, with the sparse lookup off, of a sky that no
-    gradient asks for. The bilinear filter (whose direction gradient
-    sky_compose does not carry), the sparse lookup and a float sky whose
-    planes require grad (sky_compose takes the sky as a constant) keep
-    sky_lookup and compose_sky."""
+    """Whether render_frame composes each sample through sky_compose: either
+    filter, with the sparse lookup off, of a sky that no gradient asks for.
+    The sparse lookup and a float sky whose planes require grad (sky_compose
+    takes the sky as a constant) keep sky_lookup and compose_sky."""
     sky_grad = any(t is not None and t.requires_grad for t in (cubemap.r, cubemap.g, cubemap.b))
-    return config.env_filter == "nearest" and not config.sky_sparse_gather and not sky_grad
+    return not config.sky_sparse_gather and not sky_grad
 
 
-def sky_state_planes(cubemap: CubemapData) -> int:
+def _bilinear_arm(bilinear: bool, cubemap: CubemapData) -> bool:
+    """Whether the bilinear filter reads more than one texel: a 1x1 sky
+    reads its face's texel under either filter."""
+    return bilinear and cubemap.h * cubemap.w > 1
+
+
+def sky_state_planes(cubemap: CubemapData, bilinear: bool = False) -> int:
     """int32 planes a pixel that sky_compose keeps for the backward: the word
-    and the three throughput planes, and for a float sky larger than 1x1 the
-    flat texel index."""
+    and the three throughput planes; for the bilinear filter on a sky larger
+    than 1x1 the miss direction as well (seven), else for a float sky larger
+    than 1x1 the flat texel index (five)."""
+    if _bilinear_arm(bilinear, cubemap):
+        return 7
     return 5 if cubemap.packed is None and cubemap.h * cubemap.w > 1 else 4
 
 
@@ -1155,35 +1167,42 @@ def _clip_code(x):
 
 
 def sky_compose_plain(planes, total, cubemap: CubemapData, cache: bool = False,
-                      keep_state: bool = False):
+                      keep_state: bool = False, bilinear: bool = False):
     """The plain PyTorch version of the forward CUDA kernel: one sample's
-    nearest-texel sky lookup, compose_sky, and the running sum. `planes`
-    (10,H,W) from tile_physics (the miss plane holds 0 or 1), `total` the
-    (H,W,3) running sum or None for the first sample. Returns (total + rgb,
-    state, cache): `state` the (sky_state_planes,H,W) int32 planes the
-    adjoint reads (with keep_state, else None); with `cache` (sample 0 of a
-    frame that keeps a sky cache: a packed sky larger than 1x1) the cache
-    (flat texel index, texel where the path missed and 0 elsewhere, miss
-    flag) and a compose with that texel, as gather_texels gives it, else
-    None. Bit for bit what sample_cubemap and compose_sky compute."""
+    sky lookup (the nearest texel, or with `bilinear` the bilinear filter),
+    compose_sky, and the running sum. `planes` (10,H,W) from tile_physics
+    (the miss plane holds 0 or 1), `total` the (H,W,3) running sum or None
+    for the first sample. Returns (total + rgb, state, cache): `state` the
+    (sky_state_planes,H,W) int32 planes the adjoint reads (with keep_state,
+    else None); with `cache` (sample 0 of a frame that keeps a sky cache: a
+    packed sky larger than 1x1, nearest texels) the cache (flat texel index,
+    texel where the path missed and 0 elsewhere, miss flag) and a compose
+    with that texel, as gather_texels gives it, else None. Bit for bit what
+    sample_cubemap and compose_sky compute."""
     d = Vec3(planes[3], planes[4], planes[5])
     miss = planes[9]
-    if cubemap.h * cubemap.w == 1:
-        k = face_uv(d)[0]
-    else:
-        k = texel_flat_index(cubemap, d)
     cached = None
-    if cubemap.packed is not None:
-        low = cubemap.packed[k.long()]
-        if cache:
-            miss0 = miss > 0.5
-            low = torch.where(miss0, low, 0)
-            cached = (k, low, miss0)
-        sky = unpack_texels(low)
+    if _bilinear_arm(bilinear, cubemap):
+        sky = bilinear_terms(cubemap, d)[0]
+        low = torch.zeros(miss.shape, dtype=torch.int32, device=miss.device)
+        rest = list(planes[3:6].view(torch.int32))
     else:
-        kl = k.long()
-        sky = Vec3(cubemap.r[kl], cubemap.g[kl], cubemap.b[kl])
-        low = k if cubemap.h * cubemap.w == 1 else torch.zeros_like(k)
+        if cubemap.h * cubemap.w == 1:
+            k = face_uv(d)[0]
+        else:
+            k = texel_flat_index(cubemap, d)
+        if cubemap.packed is not None:
+            low = cubemap.packed[k.long()]
+            if cache:
+                miss0 = miss > 0.5
+                low = torch.where(miss0, low, 0)
+                cached = (k, low, miss0)
+            sky = unpack_texels(low)
+        else:
+            kl = k.long()
+            sky = Vec3(cubemap.r[kl], cubemap.g[kl], cubemap.b[kl])
+            low = k if cubemap.h * cubemap.w == 1 else torch.zeros_like(k)
+        rest = [k] if sky_state_planes(cubemap) == 5 else []
     c = Vec3(planes[6], planes[7], planes[8])
     x = Vec3(planes[0], planes[1], planes[2]) + sky * c * miss
     rgb = x.clip(0.0, 1.0).to_array()
@@ -1193,13 +1212,14 @@ def sky_compose_plain(planes, total, cubemap: CubemapData, cache: bool = False,
         word = low | torch.where(miss > 0.5, SKY_MISS_BIT, 0).to(torch.int32)
         for ch, xc in enumerate((x.x, x.y, x.z)):
             word = word | (_clip_code(xc) << (SKY_CLIP_SHIFT + 2 * ch))
-        rest = [k] if sky_state_planes(cubemap) == 5 else []
         state = torch.stack([word, *(p.view(torch.int32) for p in planes[6:9]), *rest])
     return out, state, cached
 
 
-def _state_sky(state, cubemap: CubemapData) -> Vec3:
+def _state_sky(state, cubemap: CubemapData, bilinear: bool = False) -> Vec3:
     """The sky radiance a compose used, from its saved state."""
+    if _bilinear_arm(bilinear, cubemap):
+        return bilinear_terms(cubemap, _state_direction(state))[0]
     word = state[0]
     if cubemap.packed is not None:
         return unpack_texels(word & SKY_TEXEL_MASK)
@@ -1208,26 +1228,41 @@ def _state_sky(state, cubemap: CubemapData) -> Vec3:
     return Vec3(cubemap.r[k], cubemap.g[k], cubemap.b[k])
 
 
-def sky_compose_adjoint_plain(g_total, state, cubemap: CubemapData):
+def _state_direction(state) -> Vec3:
+    """The miss direction a bilinear compose kept (state planes 4-6)."""
+    d = state[4:7].view(torch.float32)
+    return Vec3(d[0], d[1], d[2])
+
+
+def sky_compose_adjoint_plain(g_total, state, cubemap: CubemapData, bilinear: bool = False):
     """The plain PyTorch version of the adjoint CUDA kernel: the (10,H,W)
     cotangent of one sample's planes from the running sum's (H,W,3)
     cotangent and the state sky_compose_plain kept. The clip passes all,
-    half or none of each channel's cotangent as autograd does; the direction
-    planes get 0."""
+    half or none of each channel's cotangent as autograd does; the
+    direction planes get 0 at the nearest texel and, with `bilinear`, the
+    filter's cotangent (ops/cubemap.py::bilinear_adjoint) of each channel's
+    (g * w) * miss * c."""
     word = state[0]
-    sky = _state_sky(state, cubemap)
+    sky = _state_sky(state, cubemap, bilinear)
     miss = ((word & SKY_MISS_BIT) != 0).to(torch.float32)
     zero = torch.zeros_like(miss)
-    g_x, g_c, terms = [], [], []
+    g_x, g_c, terms, g_sky = [], [], [], []
     for ch, s in enumerate((sky.x, sky.y, sky.z)):
         g = g_total[..., ch]
         code = (word >> (SKY_CLIP_SHIFT + 2 * ch)) & 3
         gx = torch.where(code == SKY_CLIP_FULL, g, torch.where(code == SKY_CLIP_HALF, g * 0.5, zero))
+        c = state[1 + ch].view(torch.float32)
         g_x.append(gx)
         g_c.append(gx * miss * s)
-        terms.append(gx * (s * state[1 + ch].view(torch.float32)))
+        terms.append(gx * (s * c))
+        g_sky.append(gx * miss * c)
     g_miss = terms[0] + terms[1] + terms[2]
-    return torch.stack([*g_x, zero, zero, zero, *g_c, g_miss])
+    if _bilinear_arm(bilinear, cubemap):
+        g_d = bilinear_adjoint(cubemap, _state_direction(state), Vec3(*g_sky))
+        g_dir = [g_d.x, g_d.y, g_d.z]
+    else:
+        g_dir = [zero, zero, zero]
+    return torch.stack([*g_x, *g_dir, *g_c, g_miss])
 
 
 def _sky_pointers(cubemap: CubemapData, dev):
@@ -1243,7 +1278,8 @@ def _sky_pointers(cubemap: CubemapData, dev):
             cubemap.h, cubemap.w)
 
 
-def _launch_sky_compose(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool):
+def _launch_sky_compose(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool,
+                        bilinear: bool = False):
     """Launch the forward CUDA kernel on PyTorch's current stream: the
     arguments and results of sky_compose_plain. Without keep_state the sum
     is added into `total` in place. Does not synchronise; raises when the
@@ -1253,60 +1289,64 @@ def _launch_sky_compose(planes, total, cubemap: CubemapData, cache: bool, keep_s
     _check_tensor("planes", planes, (10, *frame), torch.float32, dev)
     if total is not None:
         _check_tensor("running sum", total, (*frame, 3), torch.float32, dev)
-    if cache and (cubemap.packed is None or cubemap.h * cubemap.w == 1):
-        raise ValueError("a sky cache needs a packed sky larger than 1x1")
+    arm = _bilinear_arm(bilinear, cubemap)
+    if cache and (cubemap.packed is None or cubemap.h * cubemap.w == 1 or arm):
+        raise ValueError("a sky cache needs a packed sky larger than 1x1 at the nearest texel")
     sky = _sky_pointers(cubemap, dev)
     lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_sky_compose",
-                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
     with torch.cuda.device(dev):
         out = total if total is not None and not keep_state else torch.empty(
             (*frame, 3), dtype=torch.float32, device=dev)
-        state = (torch.empty((sky_state_planes(cubemap), *frame), dtype=torch.int32, device=dev)
-                 if keep_state else None)
+        state = (torch.empty((sky_state_planes(cubemap, bilinear), *frame), dtype=torch.int32,
+                             device=dev) if keep_state else None)
         cached = None
         if cache:
             cached = (torch.empty(frame, dtype=torch.int32, device=dev),
                       torch.empty(frame, dtype=torch.int32, device=dev),
                       torch.empty(frame, dtype=torch.bool, device=dev))
         err = fn(planes.data_ptr(), None if total is None else total.data_ptr(), out.data_ptr(),
-                 *sky, planes[0].numel(), None if state is None else state.data_ptr(),
+                 *sky, planes[0].numel(), int(arm), None if state is None else state.data_ptr(),
                  *((t.data_ptr() for t in cached) if cache else (None, None, None)),
                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "sky_compose")
-    launch_counts["sky_compose"] += 1
+    launch_counts["sky_compose_bilinear" if arm else "sky_compose"] += 1
     return out, state, cached
 
 
-def _launch_sky_compose_adjoint(g_total, state, cubemap: CubemapData):
+def _launch_sky_compose_adjoint(g_total, state, cubemap: CubemapData, bilinear: bool = False):
     """Launch the adjoint CUDA kernel on PyTorch's current stream: the
     (10,H,W) cotangent of sky_compose_adjoint_plain. Does not synchronise;
     raises when the launch is refused."""
     dev = state.device
     frame = tuple(state.shape[1:])
-    _check_tensor("state", state, (sky_state_planes(cubemap), *frame), torch.int32, dev)
+    _check_tensor("state", state, (sky_state_planes(cubemap, bilinear), *frame), torch.int32,
+                  dev)
     # autograd may hand over an expanded or strided cotangent
     g_total = g_total.contiguous()
     _check_tensor("running sum's cotangent", g_total, (*frame, 3), torch.float32, dev)
     sky = _sky_pointers(cubemap, dev)
+    arm = _bilinear_arm(bilinear, cubemap)
     lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_sky_compose_adjoint",
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(dev):
         g_planes = torch.empty((10, *frame), dtype=torch.float32, device=dev)
-        err = fn(g_total.data_ptr(), state.data_ptr(), *sky, state[0].numel(),
+        err = fn(g_total.data_ptr(), state.data_ptr(), *sky, state[0].numel(), int(arm),
                  g_planes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "sky_compose_adjoint")
-    launch_counts["sky_compose_adjoint"] += 1
+    launch_counts["sky_compose_bilinear_adjoint" if arm else "sky_compose_adjoint"] += 1
     return g_planes
 
 
-def _sky_compose_forward(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool):
+def _sky_compose_forward(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool,
+                         bilinear: bool):
     """The forward CUDA kernel for planes on the card, its plain version for
     planes on the CPU. Nothing else decides between them."""
     if planes.device.type == "cuda":
-        return _launch_sky_compose(planes, total, cubemap, cache, keep_state)
+        return _launch_sky_compose(planes, total, cubemap, cache, keep_state, bilinear)
     if planes.device.type != "cpu":
         raise ValueError(f"unsupported device {planes.device}")
-    out, state, cached = sky_compose_plain(planes, total, cubemap, cache, keep_state)
+    out, state, cached = sky_compose_plain(planes, total, cubemap, cache, keep_state, bilinear)
     if total is not None and not keep_state:
         out = total.copy_(out)
     return out, state, cached
@@ -1321,16 +1361,16 @@ class SkyComposeFunction(torch.autograd.Function):
     sample's compact state (sky_state_planes planes a pixel) and no view of
     the planes; with `cache` it also returns the sky cache, not
     differentiable. backward: the adjoint kernel (sky_compose_adjoint_plain
-    on the CPU) writes the planes' cotangent; the running sum's passes
-    through."""
+    on the CPU) writes the planes' cotangent, with `bilinear` the miss
+    direction's too; the running sum's passes through."""
 
     @staticmethod
-    def forward(ctx, planes, total, cubemap, cache):
+    def forward(ctx, planes, total, cubemap, cache, bilinear):
         out, state, cached = _sky_compose_forward(
             planes.detach(), None if total is None else total.detach(), cubemap, cache,
-            keep_state=True)
+            keep_state=True, bilinear=bilinear)
         ctx.save_for_backward(state)
-        ctx.cubemap = cubemap
+        ctx.cubemap, ctx.bilinear = cubemap, bilinear
         ctx.chained = total is not None
         if not cache:
             return out
@@ -1343,23 +1383,25 @@ class SkyComposeFunction(torch.autograd.Function):
         (state,) = ctx.saved_tensors
         with span("kernel.sky_compose_adjoint"):
             if state.device.type == "cuda":
-                g_planes = _launch_sky_compose_adjoint(g_total, state, ctx.cubemap)
+                g_planes = _launch_sky_compose_adjoint(g_total, state, ctx.cubemap, ctx.bilinear)
             else:
-                g_planes = sky_compose_adjoint_plain(g_total, state, ctx.cubemap)
-        return g_planes, (g_total if ctx.chained else None), None, None
+                g_planes = sky_compose_adjoint_plain(g_total, state, ctx.cubemap, ctx.bilinear)
+        return g_planes, (g_total if ctx.chained else None), None, None, None
 
 
-def sky_compose(planes, total, cubemap: CubemapData, cache: bool = False):
-    """(total + rgb, sky cache or None): one sample's nearest-texel sky
-    lookup, compose_sky and running sum (sky_compose_plain says what each
-    argument is). Through SkyComposeFunction where the planes or the sum
-    require grad; otherwise the forward alone, adding into `total` in
-    place."""
+def sky_compose(planes, total, cubemap: CubemapData, cache: bool = False,
+                bilinear: bool = False):
+    """(total + rgb, sky cache or None): one sample's sky lookup (nearest
+    texel, or with `bilinear` the bilinear filter), compose_sky and running
+    sum (sky_compose_plain says what each argument is). Through
+    SkyComposeFunction where the planes or the sum require grad; otherwise
+    the forward alone, adding into `total` in place."""
     if torch.is_grad_enabled() and (planes.requires_grad
                                     or (total is not None and total.requires_grad)):
-        outs = SkyComposeFunction.apply(planes, total, cubemap, cache)
+        outs = SkyComposeFunction.apply(planes, total, cubemap, cache, bilinear)
         return (outs[0], outs[1:]) if cache else (outs, None)
-    out, _, cached = _sky_compose_forward(planes, total, cubemap, cache, keep_state=False)
+    out, _, cached = _sky_compose_forward(planes, total, cubemap, cache, keep_state=False,
+                                          bilinear=bilinear)
     return out, cached
 
 
@@ -1380,15 +1422,18 @@ def _miss_texel_index(cubemap: CubemapData, planes):
 
 def _soft_silhouettes(job: TileJob, rgb: Vec3, cubemap: CubemapData, row0: int) -> Vec3:
     """render/integrator.py::soft_silhouette_composite over the job's frame,
-    with fresh unjittered primary rays from the camera pack."""
+    with fresh unjittered primary rays from the camera pack, in a span
+    "soft_silhouettes" that counts the scene's `objects` and the frame's
+    `pixels`."""
     # imported here: render/integrator.py builds its renderer on this module
     from ray_tracing_tpu_torch.render.integrator import soft_silhouette_composite
 
     shape = (job.height, job.width)
-    u, v = _tile_uv(job.width, job.height, job.norm_height, row0, job.rows.device)
-    ro0, rd0 = camera_rays_from_pack(job.cam_pack, u, v, shape)
     view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
-    return soft_silhouette_composite(view, ro0, rd0, rgb, job.config, cubemap)
+    with span("soft_silhouettes", objects=view.num_objects, pixels=job.height * job.width):
+        u, v = _tile_uv(job.width, job.height, job.norm_height, row0, job.rows.device)
+        ro0, rd0 = camera_rays_from_pack(job.cam_pack, u, v, shape)
+        return soft_silhouette_composite(view, ro0, rd0, rgb, job.config, cubemap)
 
 
 def frame_sample_seeds(seed: int, spp: int, first_sample: int = 0,
@@ -1430,7 +1475,8 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
 
     Where fused_sky_compose holds and `plain_sky` is off, each sample's sky
     lookup, compose and running sum are one sky_compose in a span "compose"
-    that counts the `texels` gathered (one a pixel). The caller picks the
+    that counts the `texels` gathered (one a pixel; four for the bilinear
+    filter on a sky larger than 1x1). The caller picks the
     sky step as it picks `tiles_fn`: the plain reference render_image
     passes plain_sky=True, so that its frame holds the kernel to the plain
     lookup on any device. Otherwise each sample opens a span
@@ -1445,6 +1491,7 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
     use_cache = (sky_cached and sky_cache_capable(cfg, cubemap)
                  and (spp > 1 or sky_cache is not None))
     fused = not plain_sky and fused_sky_compose(cfg, cubemap)
+    bilinear = cfg.env_filter == "bilinear"
     sparse = use_cache and cfg.sky_sparse_gather
     pixels = job.height * job.width
     # the sparse lookup counts its texels itself (ops/cubemap.py)
@@ -1476,8 +1523,8 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
     for s in seeds:
         planes, _ = tiles_fn(job, s, row0)
         if fused:
-            with span("compose", texels=pixels):
-                total, _ = sky_compose(planes, total, cubemap)
+            with span("compose", texels=pixels * (4 if _bilinear_arm(bilinear, cubemap) else 1)):
+                total, _ = sky_compose(planes, total, cubemap, bilinear=bilinear)
             continue
         if sparse:
             with span("sky_lookup"):
@@ -1508,8 +1555,9 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
                       return_sky_cache: bool = False, first_sample: int = 0,
                       frame_spp: int | None = None, device=None):
     """Full render through the CUDA megakernel and, per sample, the sky
-    compose kernel (sky_compose; the plain lookup for a bilinear sky or the
-    sparse lookup): (height, width, 3) float32 in [0, 1] on the device.
+    compose kernel (sky_compose, at the nearest texel or bilinear; the plain
+    lookup for the sparse lookup or a sky that requires grad): (height,
+    width, 3) float32 in [0, 1] on the device.
 
     Takes the statistics of render_image (render/integrator.py) and the
     very same random numbers. Differentiable end to end: when a leaf of

@@ -295,22 +295,106 @@ def sample_cubemap(cubemap: CubemapData, d: Vec3, bilinear: bool = False) -> Vec
         return _fetch_1x1(cubemap, face)
     if not bilinear:
         return _fetch_flat(cubemap, texel_flat_index(cubemap, d))
+    return bilinear_terms(cubemap, d)[0]
 
+
+def bilinear_corners(cubemap: CubemapData, d: Vec3):
+    """The bilinear filter's four flat texel indices (corners 00, 01 = x + 1,
+    10 = y + 1, 11; the next texel clamped to the face's last) and the
+    weights wx, wy, of a sky larger than 1x1."""
     face, fy, fx = _face_texel_f(cubemap, d)
     x0 = torch.floor(fx).to(torch.int32)
     y0 = torch.floor(fy).to(torch.int32)
     x1 = torch.clamp(x0 + 1, max=cubemap.w - 1)
     y1 = torch.clamp(y0 + 1, max=cubemap.h - 1)
-    wx = fx - x0
-    wy = fy - y0
+    corners = [_flat_index(cubemap, face, y, x) for y, x in ((y0, x0), (y0, x1), (y1, x0),
+                                                             (y1, x1))]
+    return corners, fx - x0, fy - y0
 
-    c00 = _fetch_flat(cubemap, _flat_index(cubemap, face, y0, x0))
-    c01 = _fetch_flat(cubemap, _flat_index(cubemap, face, y0, x1))
-    c10 = _fetch_flat(cubemap, _flat_index(cubemap, face, y1, x0))
-    c11 = _fetch_flat(cubemap, _flat_index(cubemap, face, y1, x1))
-    top = c00 + (c01 - c00) * wx
-    bot = c10 + (c11 - c10) * wx
-    return top + (bot - top) * wy
+
+def bilinear_terms(cubemap: CubemapData, d: Vec3):
+    """(sky, top, bot, d0, d1, wx, wy) of the bilinear filter: the lerp
+    top = c00 + d0 * wx, bot = c10 + d1 * wx (d0 = c01 - c00, d1 = c11 -
+    c10), sky = top + (bot - top) * wy, Vec3s, beside the weights. The
+    sky compose kernel's bilinear arm and its adjoint repeat these steps."""
+    (k00, k01, k10, k11), wx, wy = bilinear_corners(cubemap, d)
+    c00, c01 = _fetch_flat(cubemap, k00), _fetch_flat(cubemap, k01)
+    c10, c11 = _fetch_flat(cubemap, k10), _fetch_flat(cubemap, k11)
+    d0, d1 = c01 - c00, c11 - c10
+    top = c00 + d0 * wx
+    bot = c10 + d1 * wx
+    return top + (bot - top) * wy, top, bot, d0, d1, wx, wy
+
+
+def face_uv_adjoint(d: Vec3, g_u, g_v) -> Vec3:
+    """The cotangent of the directions d from those of face_uv's u and v
+    (before any clamp), as autograd takes it back through face_uv: u = n_u /
+    s and v = n_v / s, s the dominant component's magnitude and the
+    numerators the two others up to sign; a division passes g / s to its
+    numerator and -g * ((n / s) / s) to s, and abs passes that times the
+    component's sign. The exact |x| == |y| tie with z == 0 saturates u and v
+    to constants and gets 0."""
+    ax, ay, az = torch.abs(d.x), torch.abs(d.y), torch.abs(d.z)
+    x_dom = (ax > ay) & (ax > az)
+    y_dom = (ay > ax) & (ay > az)
+    tie = ~x_dom & ~y_dom & (az == 0.0)
+    s = torch.where(x_dom, ax, torch.where(y_dom, ay, torch.where(tie, 1.0, az)))
+    n_u = torch.where(x_dom, torch.where(d.x > 0, -d.z, d.z),
+                      torch.where(y_dom, d.x, torch.where(d.z > 0, d.x, -d.x)))
+    n_v = torch.where(x_dom, -d.y, torch.where(y_dom, torch.where(d.y > 0, d.z, -d.z), -d.y))
+    g_nu, g_nv = g_u / s, g_v / s
+    g_s = -g_u * ((n_u / s) / s) + -g_v * ((n_v / s) / s)
+    pos = torch.where(x_dom, d.x > 0, torch.where(y_dom, d.y > 0, d.z > 0))
+    g_s = torch.where(pos, g_s, -g_s)
+    gx = torch.where(x_dom, g_s, torch.where(y_dom | pos, g_nu, -g_nu))
+    gy = torch.where(x_dom, -g_nv, torch.where(y_dom, g_s, -g_nv))
+    gz = torch.where(x_dom, torch.where(pos, -g_nu, g_nu),
+                     torch.where(y_dom, torch.where(pos, g_nv, -g_nv), g_s))
+    zero = torch.zeros_like(gx)
+    return Vec3(torch.where(tie, zero, gx), torch.where(tie, zero, gy), torch.where(tie, zero, gz))
+
+
+def bilinear_adjoint(cubemap: CubemapData, d: Vec3, g_sky: Vec3) -> Vec3:
+    """The cotangent of the directions d of sample_cubemap(bilinear=True)
+    on a sky larger than 1x1 (a constant sky), from the looked-up radiance's
+    g_sky: through the lerp to wx and wy, through the remap to u and v
+    where the clamp passes (-1 <= u <= 1, as torch.clamp's backward), and
+    through face_uv (face_uv_adjoint). The weights' cotangents sum their
+    terms in the order autograd adds them, the last use first: for wy the
+    channels z, y, x; for wx the bottom row's z, y, x, then the top row's."""
+    _, top, bot, d0, d1, wx, wy = bilinear_terms(cubemap, d)
+    g_sky, top, bot = (g_sky.x, g_sky.y, g_sky.z), (top.x, top.y, top.z), (bot.x, bot.y, bot.z)
+    g_bot = [gs * wy for gs in g_sky]
+    g_top = [gs - gb for gs, gb in zip(g_sky, g_bot)]
+    g_wy = (g_sky[2] * (bot[2] - top[2]) + g_sky[1] * (bot[1] - top[1])) \
+        + g_sky[0] * (bot[0] - top[0])
+    g_wx = ((((g_bot[2] * d1.z + g_bot[1] * d1.y) + g_bot[0] * d1.x) + g_top[2] * d0.z)
+            + g_top[1] * d0.y) + g_top[0] * d0.x
+    _, u, v = face_uv(d)
+    g_u = torch.where((u >= -1.0) & (u <= 1.0), (g_wx * (cubemap.w - 1)) * 0.5, 0.0)
+    g_v = torch.where((v >= -1.0) & (v <= 1.0), (g_wy * (cubemap.h - 1)) * 0.5, 0.0)
+    return face_uv_adjoint(d, g_u, g_v)
+
+
+def bilinear_adjoint_scale(cubemap: CubemapData, d: Vec3, g_sky: Vec3):
+    """Per direction a bound on the magnitudes of everything bilinear_adjoint
+    sums and divides on its way: the sums of the magnitudes of the weights'
+    terms (|g_top * d0| and |g_bot * d1| over the channels for wx, |g_sky *
+    (bot - top)| for wy), taken to u and v (times (size - 1) / 2) and
+    through face_uv (times (1 + |u| + |v|) / s, s the dominant component's
+    magnitude). Any order of those sums and roundings stays within a few
+    float32 epsilons of it where the cotangent itself may cancel to 0: the
+    yardstick its tests and the card's checks hold it to autograd with."""
+    _, top, bot, d0, d1, _, wy = bilinear_terms(cubemap, d)
+    _, u, v = face_uv(d)
+    t_wx = t_wy = torch.zeros_like(wy)
+    for gs, t, b, e0, e1 in zip((g_sky.x, g_sky.y, g_sky.z), (top.x, top.y, top.z),
+                                (bot.x, bot.y, bot.z), (d0.x, d0.y, d0.z), (d1.x, d1.y, d1.z)):
+        t_wx = t_wx + ((gs - gs * wy) * e0).abs() + (gs * wy * e1).abs()
+        t_wy = t_wy + (gs * (b - t)).abs()
+    s = torch.maximum(torch.maximum(d.x.abs(), d.y.abs()), d.z.abs()).clamp_min(1e-30)
+    return (0.5 * ((cubemap.w - 1) * t_wx + (cubemap.h - 1) * t_wy)
+            * (1.0 + u.abs() + v.abs()) / s)
 
 
 def downsample_packed(cubemap: CubemapData, factor: int) -> CubemapData:

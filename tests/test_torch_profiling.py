@@ -45,18 +45,24 @@ def tree(spans):
     return [(name, parent, counts) for name, _, _, _, parent, counts in spans]
 
 
-def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H, fused=True):
+def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H, fused=True,
+               soft=False):
     """(name, parent, counts) of the spans of one SPP-sample W x H frame
     whose render_image is span number `root`, inside span `parent`. With
     `fused` (kernels/megakernel.py::fused_sky_compose) a sample's sky lookup
-    and compose are one span "compose" that counts the texels."""
+    and compose are one span "compose" that counts the texels; with `soft`
+    the average holds the soft-silhouette composite's span, which counts
+    scene_2's three objects and the frame's pixels."""
     if fused:
         sample = [(kernel, root, {}), ("compose", root, {"texels": texels})]
     else:
         sample = [(kernel, root, {}), ("sky_lookup", root, {"texels": texels}),
                   ("compose", root, {})]
-    return ([("render_image", parent, {"pixels": W * H, "samples": SPP}),
-             ("tile_job", root, {})] + sample * SPP + [("average", root, {})])
+    spans = ([("render_image", parent, {"pixels": W * H, "samples": SPP}),
+              ("tile_job", root, {})] + sample * SPP + [("average", root, {})])
+    if soft:
+        spans.append(("soft_silhouettes", root + len(spans) - 1, {"objects": 3, "pixels": W * H}))
+    return spans
 
 
 def test_no_profiler_records_nothing():
@@ -71,7 +77,7 @@ def test_no_profiler_records_nothing():
     ("constant", RenderConfig(), 1, True),
     ("checker", RenderConfig(), 1, True),                          # the sky cache
     ("checker", RenderConfig(sky_sparse_gather=True), 1, False),  # 192 pixels: the full arm
-    ("checker", RenderConfig(env_filter="bilinear"), 4, False),   # no cache, 4 texels a pixel
+    ("checker", RenderConfig(env_filter="bilinear"), 4, True),    # no cache, 4 texels a pixel
 ])
 def test_frame_records_its_span_tree(sky, config, per_pixel, fused):
     with torch.profiler.profile(activities=CPU):
@@ -105,17 +111,21 @@ def test_train_step_records_its_span_tree(mode, fwd):
     assert tree(profiling.recorded()) == want
 
 
-@pytest.mark.parametrize("config,lookup", [(RenderConfig(), ()),
-                                           (RenderConfig(env_filter="bilinear"), ("sky_lookup",))],
-                         ids=["fused", "bilinear"])
-def test_spans_enclose_the_aten_events_they_issued(config, lookup):
+@pytest.mark.parametrize("config,sky,lookup", [
+    (RenderConfig(), "constant", ()),
+    (RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08), "constant",
+     ("soft_silhouettes",)),
+    (RenderConfig(sky_sparse_gather=True), "checker", ("sky_lookup",))],
+    ids=["fused", "bilinear", "sparse"])
+def test_spans_enclose_the_aten_events_they_issued(config, sky, lookup):
     """The spans' clock is the profiler's: every aten:: event whose middle
     falls in a span starts and ends inside it, and each span that issues
-    tensor work holds some (a "sky_lookup" span only where the bilinear
-    filter keeps the plain lookup)."""
-    frame(config=config)  # the first frame's one-time work stays out of the profile
+    tensor work holds some (a "soft_silhouettes" span where the frame is
+    blended with the soft primary visibility, a "sky_lookup" span where the
+    sparse lookup keeps the plain lookup and compose)."""
+    frame(sky, config)  # the first frame's one-time work stays out of the profile
     with torch.profiler.profile(activities=CPU) as prof:
-        frame(config=config)
+        frame(sky, config)
     spans = profiling.recorded()
     events = [(e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
               if e.name().startswith("aten::")]
@@ -128,6 +138,19 @@ def test_spans_enclose_the_aten_events_they_issued(config, lookup):
                 held[name] += 1
     assert all(held[n] for n in ("render_image", "tile_job", "kernel.megakernel_fwd",
                                  "compose", "average", *lookup)), held
+
+
+@pytest.mark.parametrize("sky,per_pixel", [("constant", 1), ("checker", 4)])
+def test_a_soft_silhouette_frame_records_the_composite(sky, per_pixel):
+    """invert's frame (the bilinear filter, soft silhouettes): one fused
+    "compose" a sample counting 4 texels a pixel (1 on a 1x1 sky), and the
+    composite in a span "soft_silhouettes" inside "average" counting the
+    objects and the pixels."""
+    cfg = RenderConfig(bounces=3, shadow_samples=2, env_filter="bilinear",
+                       soft_silhouette_temp=0.08)
+    with torch.profiler.profile(activities=CPU):
+        frame(sky, cfg)
+    assert tree(profiling.recorded()) == frame_tree(texels=W * H * per_pixel, soft=True)
 
 
 def test_the_cap_drops_spans_and_counts_them(monkeypatch):

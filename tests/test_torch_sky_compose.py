@@ -10,7 +10,13 @@ and throughput planes, which repeat autograd's operations one for one
 channels' terms, in an order autograd does not fix: within 1e-6 of the sum
 of their magnitudes, which bounds the rounding of any order of a float32
 sum of three terms (about 1.2e-7 of it) where a relative error of the sum
-itself has no bound (the terms may cancel).
+itself has no bound (the terms may cancel). The bilinear filter's
+direction cotangent sums six terms into the weight wx and three into wy
+(in the order autograd adds them, but that order is autograd's to change)
+and takes them through face_uv's divisions: within 2e-6 of a bound on the
+magnitudes of everything it sums (ops/cubemap.py::bilinear_adjoint_scale),
+which covers five roundings of a reordered six-term sum and four more on
+the way (9 eps, about 1.1e-6).
 
 The tests at the end need the card (marker `gpu`) and import nothing of
 JAX, so that they run there (`python -m pytest tests/test_torch_sky_compose.py
@@ -36,6 +42,7 @@ from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT
 
 H, W = 12, 16
 MISS_RTOL = 1e-6
+DIR_RTOL = 2e-6
 ROWS_RTOL, ROWS_ATOL = 2e-3, 2e-4  # tests/test_torch_backward.py's: K3 sums with atomics
 
 
@@ -81,7 +88,7 @@ def sample_planes(seed, device="cpu"):
     return torch.from_numpy(planes).to(device)
 
 
-def reference(planes, total, cubemap, cache=False):
+def reference(planes, total, cubemap, cache=False, bilinear=False):
     """sample_cubemap and compose_sky (gather_texels' zeros where the path
     did not miss, for a cache's sample 0), added into `total`: the plain
     path the fused step replaces."""
@@ -90,7 +97,8 @@ def reference(planes, total, cubemap, cache=False):
         packed = tcm.gather_texels(cubemap, flat, miss)
         sky = tcm.unpack_texels(packed)
     else:
-        sky = tcm.sample_cubemap(cubemap, Vec3(planes[3], planes[4], planes[5]))
+        sky = tcm.sample_cubemap(cubemap, Vec3(planes[3], planes[4], planes[5]),
+                                 bilinear=bilinear)
     rgb = mk.compose_sky(planes, sky).to_array()
     out = rgb if total is None else total + rgb
     return (out, (flat, packed, miss)) if cache else (out, None)
@@ -101,26 +109,40 @@ def cotangent(seed, device="cpu"):
     return g.to(device)
 
 
-def miss_terms_scale(g_planes, planes, cubemap, cache=False):
+def miss_terms_scale(g_planes, planes, cubemap, cache=False, bilinear=False):
     """Per pixel the sum over the channels of |(g * w) * (sky * c)|: the
     magnitudes of the terms the miss plane's cotangent sums (g * w is the
     radiance planes' cotangent)."""
-    _, state, _ = mk.sky_compose_plain(planes, None, cubemap, cache, keep_state=True)
-    sky = mk._state_sky(state, cubemap)
+    _, state, _ = mk.sky_compose_plain(planes, None, cubemap, cache, keep_state=True,
+                                       bilinear=bilinear)
+    sky = mk._state_sky(state, cubemap, bilinear)
     return sum((g_planes[ch] * (s * planes[6 + ch])).abs()
                for ch, s in enumerate((sky.x, sky.y, sky.z)))
 
 
-def assert_cotangents(got, want, planes, cubemap, cache=False):
-    assert torch.equal(got[:9], want[:9])
-    scale = miss_terms_scale(got, planes, cubemap, cache)
+def direction_terms_scale(g_planes, planes, cubemap):
+    """The bound on the magnitudes of what the bilinear filter's direction
+    cotangent sums (ops/cubemap.py::bilinear_adjoint_scale), for the sky
+    cotangent (g * w) * miss * c of the radiance planes' cotangent g * w."""
+    g_sky = Vec3(*(g_planes[ch] * planes[9] * planes[6 + ch] for ch in range(3)))
+    return tcm.bilinear_adjoint_scale(cubemap, Vec3(planes[3], planes[4], planes[5]), g_sky)
+
+
+def assert_cotangents(got, want, planes, cubemap, cache=False, bilinear=False):
+    if mk._bilinear_arm(bilinear, cubemap):
+        assert torch.equal(got[:3], want[:3]) and torch.equal(got[6:9], want[6:9])
+        scale = direction_terms_scale(got, planes, cubemap)
+        assert ((got[3:6] - want[3:6]).abs() <= DIR_RTOL * scale).all()
+    else:
+        assert torch.equal(got[:9], want[:9])
+    scale = miss_terms_scale(got, planes, cubemap, cache, bilinear)
     assert ((got[9] - want[9]).abs() <= MISS_RTOL * scale).all()
 
 
-def reference_vjp(planes, total, cubemap, g, cache=False):
+def reference_vjp(planes, total, cubemap, g, cache=False, bilinear=False):
     p = planes.clone().requires_grad_(True)
     t = None if total is None else total.clone().requires_grad_(True)
-    out, _ = reference(p, t, cubemap, cache)
+    out, _ = reference(p, t, cubemap, cache, bilinear)
     grads = torch.autograd.grad(out, [p] if t is None else [p, t], g)
     return out.detach(), grads[0], (grads[1] if t is not None else None)
 
@@ -210,6 +232,54 @@ def test_the_state_word_holds_texel_clip_codes_and_miss():
     assert torch.equal(state[1:4].view(torch.float32), planes[6:9])
 
 
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("first", [True, False], ids=["first_sample", "running_sum"])
+def test_plain_bilinear_forward_equals_the_lookup_and_compose(sky, first):
+    """The bilinear arm's plain twin is sample_cubemap(bilinear=True) and
+    compose_sky bit for bit; it keeps seven planes (the word, the throughput
+    and the direction) on a sky larger than 1x1, whose lookup then differs
+    from the nearest texel's, and is the nearest arm on a 1x1 sky."""
+    cubemap = SKIES[sky]()
+    planes = sample_planes(21)
+    total = None if first else torch.rand((H, W, 3), generator=torch.Generator().manual_seed(22))
+    want, _ = reference(planes, total, cubemap, bilinear=True)
+    got, state, cached = mk.sky_compose_plain(planes, total, cubemap, keep_state=True,
+                                              bilinear=True)
+    assert torch.equal(got, want) and cached is None
+    one = cubemap.h * cubemap.w == 1
+    assert tuple(state.shape) == (mk.sky_state_planes(cubemap, True), H, W)
+    assert mk.sky_state_planes(cubemap, True) == (mk.sky_state_planes(cubemap) if one else 7)
+    nearest, n_state, _ = mk.sky_compose_plain(planes, total, cubemap, keep_state=True)
+    assert torch.equal(got, nearest) is one
+    if one:
+        assert torch.equal(state, n_state)
+    else:
+        assert torch.equal(state[4:7].view(torch.float32), planes[3:6])
+        assert not (state[0] & mk.SKY_TEXEL_MASK).any()
+
+
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("first", [True, False], ids=["first_sample", "running_sum"])
+def test_plain_bilinear_adjoint_equals_autograd(sky, first):
+    """The bilinear arm's adjoint against autograd through
+    sample_cubemap(bilinear=True) and compose_sky: every plane, the
+    direction's included, which a sky larger than 1x1 moves."""
+    cubemap = SKIES[sky]()
+    planes = sample_planes(23)
+    total = None if first else torch.rand((H, W, 3), generator=torch.Generator().manual_seed(24))
+    g = cotangent(25)
+    want_out, want_gp, want_gt = reference_vjp(planes, total, cubemap, g, bilinear=True)
+    p = planes.clone().requires_grad_(True)
+    t = None if total is None else total.clone().requires_grad_(True)
+    out, cached = mk.sky_compose(p, t, cubemap, bilinear=True)
+    assert cached is None and torch.equal(out.detach(), want_out)
+    grads = torch.autograd.grad(out, [p] if t is None else [p, t], g)
+    assert_cotangents(grads[0], want_gp, planes, cubemap, bilinear=True)
+    assert bool(grads[0][3:6].any()) is (cubemap.h * cubemap.w > 1)
+    if t is not None:
+        assert torch.equal(grads[1], want_gt)
+
+
 # ---------------------------------------------------------------------------
 # Frames through render_frame, on the CPU
 # ---------------------------------------------------------------------------
@@ -273,6 +343,29 @@ def test_frames_and_gradients_equal_the_unfused_path(text, sky):
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
 
 
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("text", [SCENE_2_TEXT, ROOM_TEXT], ids=["scene_2", "room"])
+def test_bilinear_frames_and_gradients_equal_the_unfused_path(text, sky):
+    """The fused bilinear step through render_image_cuda against the plain
+    lookup and compose at 64x48: the frame bit for bit, the gradients of
+    albedo and p0 (which the miss directions carry) as the nearest test's."""
+    cfg = RenderConfig(bounces=3, shadow_samples=1, env_filter="bilinear")
+    cubemap = SKIES[sky]()
+    scene, leaves = scene_with_leaves(text, "cpu")
+    cam = Camera.default("cpu")
+    width, height = 64, 48
+    target = torch.full((height, width, 3), 0.4)
+    job = mk.make_tile_job(scene, cam, width, height, cfg)
+    got = frame_and_gradients(lambda s: mk.render_image_cuda(
+        s, cam, width, height, seed=7, spp=2, config=cfg, cubemap=cubemap, device="cpu"),
+        scene, leaves, target)
+    want = frame_and_gradients(lambda s: unfused_frame(job, 7, 2, cubemap), scene, leaves,
+                               target)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+
+
 def count_sky_steps(monkeypatch):
     """Calls of sky_compose and of compose_sky, counted as they happen."""
     calls = {"fused": 0, "compose_sky": 0}
@@ -293,13 +386,14 @@ def count_sky_steps(monkeypatch):
 
 @pytest.mark.parametrize("cfg,fused", [
     (RenderConfig(), True),
-    (RenderConfig(env_filter="bilinear"), False),
+    (RenderConfig(env_filter="bilinear"), True),
     (RenderConfig(sky_sparse_gather=True), False),
+    (RenderConfig(env_filter="bilinear", sky_sparse_gather=True), False),
 ])
 def test_which_path_runs(cfg, fused, monkeypatch):
-    """The fused step for the nearest lookup; the bilinear filter and the
-    sparse lookup keep sample_cubemap / sparse_sky_lookup and compose_sky.
-    The CPU launches no kernel."""
+    """The fused step for either filter; the sparse lookup keeps
+    sample_cubemap / sparse_sky_lookup and compose_sky. The CPU launches no
+    kernel."""
     calls = count_sky_steps(monkeypatch)
     assert mk.fused_sky_compose(cfg, SKIES["packed"]()) is fused
     scene = parse_scene_string(SCENE_2_TEXT, device="cpu")
@@ -361,12 +455,12 @@ def test_a_sky_that_requires_grad_keeps_the_plain_lookup_and_gets_its_gradient(m
         assert torch.equal(a, b)
 
 
-def saved_planes_per_sample(width, height, spp):
+def saved_planes_per_sample(width, height, spp, env_filter="nearest", device="cpu"):
     """Planes of width x height float32 that the tensors autograd saved
     still hold once the forward of a fetch frame of scene_2 is done, per
     sample. A saved view counts its whole storage; a storage is counted
     once, in whole planes (the scene rows and the camera pack hold none)."""
-    scene, leaves = scene_with_leaves(SCENE_2_TEXT, "cpu")
+    scene, leaves = scene_with_leaves(SCENE_2_TEXT, device)
     refs = []
 
     def pack(t):
@@ -374,9 +468,10 @@ def saved_planes_per_sample(width, height, spp):
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        img = mk.render_image_cuda(scene, Camera.default("cpu"), width, height, seed=3, spp=spp,
-                                   config=RenderConfig(bwd_mode="fetch"),
-                                   cubemap=SKIES["packed"](), device="cpu")
+        img = mk.render_image_cuda(scene, Camera.default(device), width, height, seed=3,
+                                   spp=spp, config=RenderConfig(bwd_mode="fetch",
+                                                                env_filter=env_filter),
+                                   cubemap=SKIES["packed"](device), device=device)
     gc.collect()
     storages = {}
     for r in refs:
@@ -394,6 +489,13 @@ def test_a_differentiated_frame_keeps_at_most_14_planes_a_sample():
     light) and four of the compose's state, and no view of the sample's
     planes."""
     assert saved_planes_per_sample(64, 48, 4) <= 14
+
+
+def test_a_differentiated_bilinear_frame_keeps_at_most_17_planes_a_sample():
+    """Ten planes of winner indices and seven of the bilinear compose's
+    state (the word, the throughput and the miss direction); the plain
+    lookup and compose kept 32."""
+    assert saved_planes_per_sample(64, 48, 4, "bilinear") <= 17
 
 
 # ---------------------------------------------------------------------------
@@ -494,15 +596,89 @@ def test_cuda_plain_render_launches_no_kernel(sky, cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg,launches", [(RenderConfig(), 1),
-                                          (RenderConfig(env_filter="bilinear"), 0)])
+                                          (RenderConfig(env_filter="bilinear"), 1)])
 def test_cuda_launches_one_compose_a_sample(cfg, launches, cuda_device):
     scene = parse_scene_string(SCENE_2_TEXT, device=cuda_device)
     cubemap = packed_sky(64, cuda_device)
+    key = "sky_compose_bilinear" if cfg.env_filter == "bilinear" else "sky_compose"
     mk.reset_launch_counts()
     with torch.no_grad():
         img = mk.render_image_cuda(scene, Camera.default(cuda_device), 128, 96, seed=2, spp=8,
                                    config=cfg, cubemap=cubemap)
     torch.cuda.synchronize()
-    assert mk.launch_counts["sky_compose"] == 8 * launches
-    assert mk.launch_counts["sky_compose_adjoint"] == 0
+    assert mk.launch_counts[key] == 8 * launches
+    assert all(v == 0 for k, v in mk.launch_counts.items() if k not in (key, "megakernel_fwd"))
     assert img.shape == (96, 128, 3) and img.is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sky", list(SKIES))
+@pytest.mark.parametrize("first", [True, False], ids=["first_sample", "running_sum"])
+def test_cuda_bilinear_kernels_equal_the_plain_version(sky, first, cuda_device):
+    """The bilinear arms against their plain twin bit for bit (sum, state and
+    cotangent), against the plain lookup and compose, and against autograd
+    through it."""
+    cubemap = SKIES[sky](cuda_device)
+    planes = sample_planes(31, cuda_device)
+    total = None if first else torch.rand((H, W, 3), device=cuda_device)
+    g = cotangent(32, cuda_device)
+    before = dict(mk.launch_counts)
+    out, state, _ = mk._launch_sky_compose(planes, total, cubemap, False, True, bilinear=True)
+    g_planes = mk._launch_sky_compose_adjoint(g, state, cubemap, bilinear=True)
+    torch.cuda.synchronize()
+    # a 1x1 sky reads its face's texel under either filter: the nearest arm
+    key = "sky_compose_bilinear" if mk._bilinear_arm(True, cubemap) else "sky_compose"
+    assert {k: v - before[k] for k, v in mk.launch_counts.items()} == {
+        **dict.fromkeys(before, 0), key: 1, key + "_adjoint": 1}
+    w_out, w_state, _ = mk.sky_compose_plain(planes, total, cubemap, keep_state=True,
+                                             bilinear=True)
+    assert torch.equal(out, w_out) and torch.equal(state, w_state)
+    assert torch.equal(out, reference(planes, total, cubemap, bilinear=True)[0])
+    assert torch.equal(g_planes, mk.sky_compose_adjoint_plain(g, state, cubemap, bilinear=True))
+    assert_cotangents(g_planes, reference_vjp(planes, total, cubemap, g, bilinear=True)[1],
+                      planes, cubemap, bilinear=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sky", ["packed", "float"])
+@pytest.mark.parametrize("text", [SCENE_2_TEXT, ROOM_TEXT], ids=["scene_2", "room"])
+def test_cuda_bilinear_frames_and_gradients_equal_the_unfused_path(text, sky, cuda_device):
+    """A differentiated 4-sample bilinear frame launches four composes and
+    four adjoints, equals the plain lookup's frame bit for bit and its
+    gradients as the nearest test's; the plain reference render_image
+    launches neither."""
+    from ray_tracing_tpu_torch.render.integrator import render_image
+
+    cfg = RenderConfig(bounces=4, shadow_samples=2, env_filter="bilinear")
+    cubemap = SKIES[sky](cuda_device)
+    scene, leaves = scene_with_leaves(text, cuda_device)
+    cam = Camera.default(cuda_device)
+    width, height, spp = 96, 64, 4
+    target = torch.full((height, width, 3), 0.4, device=cuda_device)
+    job = mk.make_tile_job(scene, cam, width, height, cfg)
+    mk.reset_launch_counts()
+    got = frame_and_gradients(lambda s: mk.render_image_cuda(
+        s, cam, width, height, seed=7, spp=spp, config=cfg, cubemap=cubemap),
+        scene, leaves, target)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["sky_compose_bilinear"] == spp
+    assert mk.launch_counts["sky_compose_bilinear_adjoint"] == spp
+    assert mk.launch_counts["sky_compose"] == mk.launch_counts["sky_compose_adjoint"] == 0
+    want = frame_and_gradients(lambda s: unfused_frame(job, 7, spp, cubemap), scene, leaves,
+                               target)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        scale = b.abs().amax(dim=0, keepdim=True)
+        assert ((a - b).abs() <= ROWS_RTOL * b.abs() + ROWS_ATOL * scale).all()
+    before = dict(mk.launch_counts)
+    with torch.no_grad():
+        plain = render_image(scene, cam, width, height, seed=7, spp=spp, config=cfg,
+                             cubemap=cubemap)
+    torch.cuda.synchronize()
+    assert mk.launch_counts == before
+    assert torch.equal(plain, got[0])
+
+
+@pytest.mark.gpu
+def test_cuda_a_differentiated_bilinear_frame_keeps_at_most_17_planes_a_sample(cuda_device):
+    assert saved_planes_per_sample(96, 64, 4, "bilinear", cuda_device) <= 17
