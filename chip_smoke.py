@@ -270,6 +270,10 @@ def _ptxas_report(log: str) -> dict:
                 current = "sky_compose_adjoint"
             elif "sky_compose_kernel" in sym:
                 current = "sky_compose"
+            elif "soft_silhouettes_adjoint_kernel" in sym:
+                current = "soft_silhouettes_adjoint"
+            elif "soft_silhouettes_kernel" in sym:
+                current = "soft_silhouettes"
             else:
                 current = next((v for k, v in _WINNERS.items() if k in sym), sym)
             kernels[current] = {"symbol": sym}
@@ -426,13 +430,15 @@ def phase_build() -> dict:
     # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
     # each winner source; the FMA peak (K6), the gather (P1: a small table
     # staged in shared memory, or read through L1 and L2), and a sample's sky
-    # compose and its adjoint, at the nearest texel and bilinear
+    # compose and its adjoint, at the nearest texel and bilinear, and the
+    # soft silhouettes' composite and its adjoint
     if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay",
                                       "bwd_direct", "peak_fma", "gather_probe",
                                       "gather_probe_staged", "sky_compose",
                                       "sky_compose_adjoint", "sky_compose_bilinear",
-                                      "sky_compose_bilinear_adjoint"}:
-        raise RuntimeError("expected twelve kernels in the ptxas logs:\n"
+                                      "sky_compose_bilinear_adjoint", "soft_silhouettes",
+                                      "soft_silhouettes_adjoint"}:
+        raise RuntimeError("expected fourteen kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     # K6 must be fused multiply-adds although every library is built with
     # --fmad=false: the unrolled body alone holds 64 x 8 of them
@@ -1050,6 +1056,129 @@ def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
         out[name] = res
     emit("sky_compose_vs_plain", size=[WIDTH, HEIGHT], all_bit_equal=True,
          unit="ms per sample, median", **out)
+    return out
+
+
+# Float operations of the soft silhouettes, counted by hand from
+# csrc/sky_compose.cu as F_* above: per pixel the camera ray and F_RAY, per
+# object its t, per covering test a sphere's or a box's coverage (the
+# winner's on a hit, every object's on a miss), the sky and the blend.
+F_SOFT_RAY = 21           # u, v 5, cu, cv 4, rd 12 (make_ray's are F_RAY)
+F_SOFT_SPHERE_COVER = 22  # oc 3, along 5, |oc|^2 - along^2 7, sqrt 1, margin, scale, quotient 3, sigmoid 3
+F_SOFT_BOX_COVER = 37     # hi 3, slabs 12, near and far 4, margin 2, extent 7, q 3, clamp 2, z 1, sigmoid 3
+F_SOFT_SKY = 51           # the bilinear lookup (csrc/sky_compose.cu's count)
+F_SOFT_BLEND = 17         # proxy 6, 1 - alpha 2, blend 9
+# the adjoint: the forward again, then per pixel about this many of its own
+F_SOFT_ADJ = 180          # alpha 11, proxy 12, a coverage's adjoint 60-90, the sky's 100, normalize 20, camera 20
+# Agreement of the adjoint kernel with its plain twin: tests/test_torch_soft_silhouettes.py's
+SOFT_ADJ_RTOL, SOFT_ADJ_ATOL = 1e-5, 1e-6
+
+
+def soft_silhouettes_bound(job, pixels_hit: int, adjoint: bool = False) -> dict:
+    """Least time of one composite of the job's frame (the adjoint's with
+    `adjoint`): the (H,W,3) colour read and the frame written once (the
+    adjoint: the cotangent and the colour read, the colour's cotangent
+    written) at the memory rate, against the operations above at the FP32
+    rate."""
+    pixels = job.width * job.height
+    n, n_sph = len(job.obj_type), job.n_spheres
+    cover = (n_sph * F_SOFT_SPHERE_COVER + (n - n_sph) * F_SOFT_BOX_COVER) / max(n, 1)
+    per_px = (F_SOFT_RAY + F_RAY + n_sph * F_SPHERE + (n - n_sph) * F_CUBE + F_SOFT_SKY
+              + F_SOFT_BLEND)
+    ops = pixels * per_px + pixels_hit * cover + (pixels - pixels_hit) * n * cover
+    nbytes = 24 * pixels
+    if adjoint:
+        ops += pixels * F_SOFT_ADJ
+        nbytes = 36 * pixels
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes, "flops": ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "flops"}
+
+
+def soft_vs_plain(job, result, g, cubemap) -> dict:
+    """The soft silhouettes' kernels on one frame against their plain twin
+    (soft_silhouettes_plain: the frame bit for bit; the adjoint's colour
+    cotangent bit for bit, the rows' and camera's within SOFT_ADJ_RTOL of
+    their terms' magnitudes and SOFT_ADJ_ATOL of the largest entry) and the
+    frame against the plain composite (soft_silhouette_composite) bit for
+    bit. Raises on a difference."""
+    from ray_tracing_tpu_torch.render.integrator import soft_silhouette_composite
+
+    out = mk._launch_soft_silhouettes(job, result, cubemap)
+    g_res, g_rows, g_cam = mk._launch_soft_silhouettes_adjoint(job, g, result, cubemap)
+    twin = mk.soft_silhouettes_plain(job, result, cubemap)
+    w_res, w_rows, w_cam = mk.soft_silhouettes_adjoint_plain(job, g, result, cubemap)
+    s_rows, s_cam = mk.soft_silhouettes_adjoint_scale(job, g, result, cubemap)
+    view = mk.SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
+    u, v = mk._tile_uv(job.width, job.height, job.norm_height, 0, job.rows.device)
+    ro, rd = mk.camera_rays_from_pack(job.cam_pack, u, v, (job.height, job.width))
+    plain = soft_silhouette_composite(view, ro, rd, Vec3(*result.unbind(-1)), job.config,
+                                      cubemap).to_array()
+    errs = {}
+    within = True
+    for name, got, want, scale in (("rows", g_rows, w_rows, s_rows), ("camera", g_cam, w_cam, s_cam)):
+        off = (got - want).abs()
+        allowed = SOFT_ADJ_RTOL * scale + SOFT_ADJ_ATOL * want.abs().max()
+        within = within and bool((off <= allowed).all())
+        errs[name] = {"max_abs_err": float(off.max()), "largest": float(want.abs().max()),
+                      "worst_err_over_allowed": float((off / allowed.clamp_min(1e-30)).max())}
+    equal = {"frame_vs_plain": torch.equal(out, twin), "frame_vs_composite": torch.equal(out, plain),
+             "colour_cotangent_vs_plain": torch.equal(g_res, w_res)}
+    if not all(equal.values()) or not within:
+        raise RuntimeError(f"soft silhouettes: {equal}, {errs}, frame off by "
+                           f"{float((out - twin).abs().max())}")
+    return {"frame_max_abs_err": float((out - twin).abs().max()),
+            "adjoint_max_abs_err": max(e["max_abs_err"] for e in errs.values()), **errs}
+
+
+def phase_soft_silhouettes_vs_plain(scenes, camera, sky) -> dict:
+    """The soft silhouettes' kernels (csrc/sky_compose.cu) on one frame of
+    scene_2 and of the room (boxes) at full size, with invert's bilinear
+    32x32 gradient sky and with the checker sky at the nearest texel,
+    against their plain twin and the plain composite (soft_vs_plain); then,
+    on invert's sky, the times of the composite and of its adjoint beside
+    the plain composite and autograd through it, the bound, and ptxas'
+    registers and spills. Returns the numbers per scene."""
+    from ray_tracing_tpu_torch.render.integrator import soft_silhouette_composite
+
+    dev = camera.device
+    grad_sky = gradient_sky(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for name in ("scene_2", "room"):
+        cfg = RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08)
+        job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, cfg)
+        result = torch.rand((HEIGHT, WIDTH, 3), generator=gen, device=dev)
+        g = torch.randn((HEIGHT, WIDTH, 3), generator=gen, device=dev)
+        res = {"gradient": soft_vs_plain(job, result, g, grad_sky),
+               "checker_nearest": soft_vs_plain(dataclasses.replace(
+                   job, config=cfg.replace(env_filter="nearest")), result, g, sky)}
+        hits = int(mk.soft_pixels(job, grad_sky).hit.sum())
+        rows = job.rows.clone().requires_grad_(True)
+        cam = job.cam_pack.clone().requires_grad_(True)
+        res_g = result.clone().requires_grad_(True)
+
+        def plain_composite():
+            view = mk.SceneView(rows, job.obj_type, job.light_index, job.emissive)
+            u, v = mk._tile_uv(WIDTH, HEIGHT, HEIGHT, 0, dev)
+            ro, rd = mk.camera_rays_from_pack(cam, u, v, (HEIGHT, WIDTH))
+            return soft_silhouette_composite(view, ro, rd, Vec3(*res_g.unbind(-1)), cfg,
+                                             grad_sky).to_array()
+
+        with torch.no_grad():
+            res["plain_ms"] = time_launches(lambda i: plain_composite(), 10)
+        res["plain_with_autograd_ms"] = time_launches(
+            lambda i: torch.autograd.grad(plain_composite(), [res_g, rows, cam], g), 5)
+        res["kernel_ms"] = time_launches(lambda i: mk._launch_soft_silhouettes(job, result,
+                                                                               grad_sky), 50)
+        res["adjoint_ms"] = time_launches(lambda i: mk._launch_soft_silhouettes_adjoint(
+            job, g, result, grad_sky), 50)
+        res["pixels_hit"] = hits
+        res["bound"] = soft_silhouettes_bound(job, hits)
+        res["adjoint_bound"] = soft_silhouettes_bound(job, hits, adjoint=True)
+        out[name] = res
+    emit("soft_silhouettes_vs_plain", size=[WIDTH, HEIGHT], all_bit_equal=True,
+         unit="ms per frame, median", **out)
     return out
 
 
@@ -1846,7 +1975,8 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
     # (c) the invert app at its defaults (96x64, 4 samples, 100 steps on p0,
     # the bilinear gradient sky, soft silhouettes): the loss falls, p0's
     # error shrinks, and each sample takes one bilinear sky compose and,
-    # under grad, one bilinear adjoint (the target's 4 samples have none)
+    # under grad, one bilinear adjoint (the target's 4 samples have none);
+    # each frame one soft-silhouette composite and, under grad, one adjoint
     with tempfile.TemporaryDirectory() as tmp:
         scene_file = os.path.join(tmp, "scene_2.txt")
         with open(scene_file, "w") as f:
@@ -1859,6 +1989,8 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
         if (rose["sky_compose_bilinear_adjoint"] != INVERT_STEPS * INVERT_SPP
                 or rose["sky_compose_bilinear"] != (INVERT_STEPS + 1) * INVERT_SPP
                 or rose["sky_compose"] or rose["sky_compose_adjoint"]
+                or rose["soft_silhouettes"] != INVERT_STEPS + 1
+                or rose["soft_silhouettes_adjoint"] != INVERT_STEPS
                 or not loss or not float(loss.group(2)) < float(loss.group(1))
                 or not p0 or p0.group(3) != "improved"):
             raise RuntimeError(f"invert at its defaults: launches {rose}: {err[-1500:]}")
@@ -2061,10 +2193,13 @@ def phase_sharded_train(scenes, camera, sky) -> dict:
     mesh = make_mesh(2, 2, devices=[camera.device] * 4)
     l0, g0, c0, ms0 = sharded_step(start, camera, sky, target, None, 5, times=3)
     l1, g1, c1, ms1 = sharded_step(start, camera, sky, target, mesh, 5, times=3)
-    for counts, tiles in ((c0, 1), (c1, mesh.shape["tile"])):
+    for counts, tiles, cells in ((c0, 1, 1), (c1, mesh.shape["tile"],
+                                             mesh.shape["tile"] * mesh.shape["sample"])):
+        # each cell composites its rows and samples with the soft silhouettes
         want = {**dict.fromkeys(counts, 0), "megakernel_fwd_record": tiles * SPP,
                 "megakernel_bwd_fetch": tiles * SPP, "sky_compose_bilinear": tiles * SPP,
-                "sky_compose_bilinear_adjoint": tiles * SPP}
+                "sky_compose_bilinear_adjoint": tiles * SPP, "soft_silhouettes": cells,
+                "soft_silhouettes_adjoint": cells}
         if counts != want:
             raise RuntimeError(f"a train step over {tiles} tiles launched {counts}")
     report = compare_steps((l0, g0), (l1, g1), "sharded_train")
@@ -2649,7 +2784,7 @@ def trace_fields(kname: str, ptxas: dict, scenes, at_full, dev: dict, cfg) -> di
 
 def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
                   film_counts, timing, checks, bench_res, sky_res, ptxas, dev,
-                  sharded_counts, sky_compose) -> None:
+                  sharded_counts, sky_compose, soft) -> None:
     cfg = RenderConfig()
     rows = []
     # the census of the plain estimator (utils/flops.py, every lane of every
@@ -2858,6 +2993,31 @@ def phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, t
             "per_scene": {n: {"ms": r[ms], "bound_ms": r[bound_key], "plain_ms": r["plain_ms"]}
                           for n, r in sky_compose.items()},
         })
+    for kname, ms, bound_key, err_key in (
+            ("soft_silhouettes", "kernel_ms", "bound", "frame_max_abs_err"),
+            ("soft_silhouettes_adjoint", "adjoint_ms", "adjoint_bound", "adjoint_max_abs_err")):
+        lead = soft["scene_2"]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "ray_tracing_tpu_torch/kernels/csrc/sky_compose.cu",
+            "registers": ptxas[kname]["registers"],
+            "spill_bytes": ptxas[kname].get("spill_stores", 0) + ptxas[kname].get("spill_loads", 0),
+            "replaces": "none: the soft silhouettes' composite that XLA fuses inside "
+                        "ray_tracing_tpu/kernels/megakernel.py::render_image_pallas",
+            "launches": train_counts[kname],
+            "launches_by_path": {"serving": counts[kname], "training": train_counts[kname]},
+            # against the plain twin: the frame bit for bit, the adjoint's
+            # sums within their terms' rounding (soft_vs_plain)
+            "max_abs_err": max(r[sky][err_key] for r in soft.values()
+                               for sky in ("gradient", "checker_nearest")),
+            "ms": lead[ms], "plain_ms": lead["plain_ms" if kname == "soft_silhouettes"
+                                             else "plain_with_autograd_ms"],
+            "bound_ms": lead[bound_key]["bound_ms"], "bound_by": lead[bound_key]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the composite
+            "shape": [WIDTH, HEIGHT], "scene": "scene_2", "sky": "gradient_sky 32x32, float",
+            "per_scene": {n: {"ms": r[ms], "bound_ms": r[bound_key]["bound_ms"],
+                              "objects": len(scenes[n].obj_type)} for n, r in soft.items()},
+        })
     for row in rows:  # the share of the least time the card could take
         row["bound_share"] = row["bound_ms"] / row["ms"]
         # the launches of each sharded path, each counted from 0 just
@@ -3000,6 +3160,7 @@ def main() -> int:
     phase_stream_identity(bwd_results + many_fetch, retrace + retrace_full_results + many_retrace)
     checks = phase_peak_and_gather_vs_plain(scenes, camera, sky)
     sky_compose = phase_sky_compose_vs_plain(scenes, camera, sky)
+    soft = phase_soft_silhouettes_vs_plain(scenes, camera, sky)
     counts = phase_main_path(scenes, camera, sky)
     phase_cli()
     phase_native()
@@ -3023,7 +3184,7 @@ def main() -> int:
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     phase_kernels(scenes, at_full, bwd_at_full, retrace, retrace_full, counts, train_counts,
                   film_counts, timing, checks, bench_res, sky_res, ptxas, dev, sharded_counts,
-                  sky_compose)
+                  sky_compose, soft)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": torch.cuda.device_count()}}), flush=True)

@@ -78,6 +78,13 @@ a pixel (five for a float sky larger than 1x1 at the nearest texel, seven
 for the bilinear filter) and its adjoint kernel writes the sample's (10,H,W)
 cotangent, the bilinear filter's direction cotangent included.
 
+Where soft_silhouette_temp > 0, a frame on the card is blended with the soft
+primary visibility by one launch of the same library (``soft_silhouettes``;
+plain version ``soft_silhouettes_plain``), which the JAX package leaves to
+XLA; under grad ``SoftSilhouetteFunction`` keeps the frame's colour and its
+adjoint kernel recomputes the composite. The CPU, a sky that requires grad
+and the plain reference keep render/integrator.py::soft_silhouette_composite.
+
 Gradients: ``render_image_cuda`` of a scene or camera whose leaves require
 grad is differentiable end to end. ``TilesFunction`` is the boundary: in
 "fetch" its forward is the recording kernel and its backward replays each
@@ -112,9 +119,14 @@ from ray_tracing_tpu_torch.ops.cubemap import (
     unpack_texels,
 )
 from ray_tracing_tpu_torch.ops.intersect import (
+    BIG,
+    HIT_THRESHOLD,
     UNROLL_LIMIT,
     TraceRecord,
     _single_emissive_index,
+    intersect_cube,
+    intersect_sphere,
+    ray_inverses,
     trace,
     trace_record,
     trace_replay,
@@ -125,7 +137,7 @@ from ray_tracing_tpu_torch.ops.intersect import (
     trace_shadow_replay_fetch,
 )
 from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
-from ray_tracing_tpu_torch.ops.vec import Vec3, div_scalar, fresnel_schlick
+from ray_tracing_tpu_torch.ops.vec import NORMALIZE_EPS, Vec3, div_scalar, fresnel_schlick
 from ray_tracing_tpu_torch.render.camera import Camera, camera_pack, pixel_grid
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, SCENE_COLS, Scene, light_origin_from
 from ray_tracing_tpu_torch.utils.profiling import span
@@ -149,11 +161,13 @@ BWD_KERNELS = {
 # run_tiles and run_bwd open a span "kernel.<key>" around each call, so that
 # a trace groups a kernel by the span that launched it; the sky compose
 # (either arm) runs in render_frame's span "compose", its adjoint (either
-# arm) in "kernel.sky_compose_adjoint".
+# arm) in "kernel.sky_compose_adjoint"; the soft silhouettes' composite in
+# "soft_silhouettes", its adjoint in "kernel.soft_silhouettes_adjoint".
 launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
                  **{"megakernel_bwd_" + k: 0 for k in BWD_KERNELS},
                  "sky_compose": 0, "sky_compose_adjoint": 0,
-                 "sky_compose_bilinear": 0, "sky_compose_bilinear_adjoint": 0}
+                 "sky_compose_bilinear": 0, "sky_compose_bilinear_adjoint": 0,
+                 "soft_silhouettes": 0, "soft_silhouettes_adjoint": 0}
 
 # Device memory the winner-index planes of one differentiated frame may take
 # (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
@@ -1134,13 +1148,16 @@ SKY_MISS_BIT = 1 << 30
 SKY_CLIP_FULL, SKY_CLIP_HALF = 2, 1  # 0: the clip passes no cotangent
 
 
+def _sky_requires_grad(cubemap: CubemapData) -> bool:
+    return any(t is not None and t.requires_grad for t in (cubemap.r, cubemap.g, cubemap.b))
+
+
 def fused_sky_compose(config: RenderConfig, cubemap: CubemapData) -> bool:
     """Whether render_frame composes each sample through sky_compose: either
     filter, with the sparse lookup off, of a sky that no gradient asks for.
     The sparse lookup and a float sky whose planes require grad (sky_compose
     takes the sky as a constant) keep sky_lookup and compose_sky."""
-    sky_grad = any(t is not None and t.requires_grad for t in (cubemap.r, cubemap.g, cubemap.b))
-    return not config.sky_sparse_gather and not sky_grad
+    return not config.sky_sparse_gather and not _sky_requires_grad(cubemap)
 
 
 def _bilinear_arm(bilinear: bool, cubemap: CubemapData) -> bool:
@@ -1420,20 +1437,494 @@ def _miss_texel_index(cubemap: CubemapData, planes):
         return flat, planes[9] > 0.5
 
 
-def _soft_silhouettes(job: TileJob, rgb: Vec3, cubemap: CubemapData, row0: int) -> Vec3:
-    """render/integrator.py::soft_silhouette_composite over the job's frame,
-    with fresh unjittered primary rays from the camera pack, in a span
-    "soft_silhouettes" that counts the scene's `objects` and the frame's
-    `pixels`."""
+def _soft_silhouettes(job: TileJob, rgb, cubemap: CubemapData, row0: int,
+                      plain: bool = False):
+    """The job's frame `rgb` ((H,W,3) or a Vec3) blended with the soft
+    primary visibility, with fresh unjittered primary rays from the camera
+    pack, in a span "soft_silhouettes" that counts the scene's `objects` and
+    the frame's `pixels`: through soft_silhouettes (one launch of the
+    kernel, and under grad one of its adjoint) where fused_soft_silhouettes
+    holds and `plain` is off, else render/integrator.py::
+    soft_silhouette_composite (a Vec3)."""
     # imported here: render/integrator.py builds its renderer on this module
     from ray_tracing_tpu_torch.render.integrator import soft_silhouette_composite
 
     shape = (job.height, job.width)
     view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
     with span("soft_silhouettes", objects=view.num_objects, pixels=job.height * job.width):
+        if not plain and fused_soft_silhouettes(job, cubemap):
+            total = rgb.to_array() if isinstance(rgb, Vec3) else rgb
+            return soft_silhouettes(job, total.contiguous(), cubemap, row0)
+        if not isinstance(rgb, Vec3):
+            rgb = Vec3(*rgb.unbind(-1))
         u, v = _tile_uv(job.width, job.height, job.norm_height, row0, job.rows.device)
         ro0, rd0 = camera_rays_from_pack(job.cam_pack, u, v, shape)
         return soft_silhouette_composite(view, ro0, rd0, rgb, job.config, cubemap)
+
+
+# ---------------------------------------------------------------------------
+# The soft silhouettes: the kernels' wrappers, their plain version and the
+# autograd boundary
+# ---------------------------------------------------------------------------
+
+
+def fused_soft_silhouettes(job: TileJob, cubemap: CubemapData) -> bool:
+    """Whether _soft_silhouettes takes the kernels (csrc/sky_compose.cu): a
+    frame on the card, of a sky that no gradient asks for (the kernels take
+    the sky as a constant). The CPU and a sky that requires grad keep
+    render/integrator.py::soft_silhouette_composite; so does the plain
+    reference render_image, whose render_frame passes plain_sky."""
+    return job.rows.device.type == "cuda" and not _sky_requires_grad(cubemap)
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftPixels:
+    """Per pixel what the composite out = result * alpha + bg * (1 - alpha)
+    of the soft silhouettes takes, as the kernels find it: the unjittered
+    primary ray (ro, the unnormalised rd, d = normalize(rd); cu, cv its
+    screen offsets), the hard hit; `geo` the object whose coverage alpha is
+    (the winner where it covers, the best outside coverage on a miss; -1:
+    alpha is a constant); `mat` the object whose albedo and emission make
+    the proxy x = emission + albedo * sky0 (the runner-up of a hit, the
+    best outside coverage of a miss; -1: none, zeros); `proxy` whether bg is
+    clip(x) (else the sky); the sky `s` at d before its clip, sky0 after
+    it, and bg."""
+
+    u: torch.Tensor
+    v: torch.Tensor
+    cu: torch.Tensor
+    cv: torch.Tensor
+    ro: Vec3
+    rd: Vec3
+    d: Vec3
+    hit: torch.Tensor
+    proxy: torch.Tensor
+    geo: torch.Tensor
+    mat: torch.Tensor
+    alpha: torch.Tensor
+    s: Vec3
+    sky0: Vec3
+    x: Vec3
+    bg: Vec3
+
+
+def _sphere_cover(ro: Vec3, d: Vec3, center: Vec3, r, temp: float):
+    """(coverage, along) of a sphere, as the composite computes them: the
+    sigmoid of the perpendicular-distance margin over temp * radius, and the
+    centre's distance along the ray."""
+    oc = center - ro
+    along = oc.dot(d)
+    d_perp = torch.sqrt(torch.clamp(oc.norm2() - along * along, min=1e-12))
+    return torch.sigmoid((r - d_perp) / (temp * torch.clamp(r, min=1e-6))), along
+
+
+def _slab_cover(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, temp: float) -> dict:
+    """A box's coverage (render/integrator.py::_soft_slab_coverage, in its
+    operations) and the steps its adjoint reads: per axis the slab quotients
+    ta, tb over `safe` (1 on an axis-parallel ray: `zero`) and tmin, tmax
+    after the parallel rays' selects; near, far and their first pairs, the
+    margin before and after its clamp, the mean extent, q, z and the
+    coverage `a`."""
+    slabs = []
+    for lo_c, hi_c, ro_c, d_c in ((lo.x, hi.x, ro.x, d.x), (lo.y, hi.y, ro.y, d.y),
+                                  (lo.z, hi.z, ro.z, d.z)):
+        zero = d_c == 0.0
+        safe = torch.where(zero, torch.ones_like(d_c), d_c)
+        ta = (lo_c - ro_c) / safe
+        tb = (hi_c - ro_c) / safe
+        inside = (ro_c > lo_c) & (ro_c < hi_c)
+        tmin = torch.where(zero, torch.where(inside, -BIG, BIG), torch.minimum(ta, tb))
+        tmax = torch.where(zero, torch.where(inside, BIG, -BIG), torch.maximum(ta, tb))
+        slabs.append({"zero": zero, "safe": safe, "ta": ta, "tb": tb, "tmin": tmin,
+                      "tmax": tmax})
+    c = {"slabs": slabs}
+    c["near1"] = torch.maximum(slabs[0]["tmin"], slabs[1]["tmin"])
+    c["near"] = torch.maximum(c["near1"], slabs[2]["tmin"])
+    c["far1"] = torch.minimum(slabs[0]["tmax"], slabs[1]["tmax"])
+    c["far"] = torch.minimum(c["far1"], slabs[2]["tmax"])
+    c["m0"] = c["far"] - torch.clamp(c["near"], min=0.0)
+    c["size3"] = (hi.x - lo.x + hi.y - lo.y + hi.z - lo.z) / 3.0
+    c["q"] = temp * torch.clamp(c["size3"], min=1e-6)
+    c["m1"] = torch.maximum(c["m0"], -60.0 * c["q"])
+    c["m"] = torch.minimum(c["m1"], 60.0 * c["q"])
+    c["z"] = c["m"] / c["q"]
+    c["a"] = torch.sigmoid(c["z"])
+    return c
+
+
+def soft_pixels(job: TileJob, cubemap: CubemapData, row0: int = 0) -> SoftPixels:
+    """The SoftPixels of the job's frame (rows row0 .. of a norm_height-tall
+    frame): the plain version of what both kernels find per pixel, with the
+    composite's operations, so that its alpha and bg are the composite's bit
+    for bit. Its loop keeps the objects' indices where the composite's
+    selects keep their values."""
+    cfg = job.config
+    temp = cfg.soft_silhouette_temp
+    shape = (job.height, job.width)
+    dev = job.rows.device
+    view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
+    u, v = _tile_uv(job.width, job.height, job.norm_height, row0, dev)
+    cam = job.cam_pack
+    ro, rd = camera_rays_from_pack(cam, u, v, shape)
+    d = rd.normalize()
+    a = d.dot(d)
+    inv2a = 0.5 / a
+    inv = ray_inverses(d)
+    h0 = trace(view, ro, rd)
+    hit = h0.hit
+    alpha = torch.where(hit, 1.0, 0.0)
+    zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
+    none = torch.full(shape, -1, dtype=torch.int64, device=dev)
+    geo, second, best = none, none, none
+    t2 = torch.full(shape, BIG, dtype=torch.float32, device=dev)
+    a_out = zeros
+    for i in range(view.num_objects):
+        winner = (h0.obj == i) & hit
+        if view.is_sphere(i):
+            a_i, along = _sphere_cover(ro, d, view.center(i), view.radius(i), temp)
+            front = along > 0
+            t_i = intersect_sphere(ro, d, a, view.center(i), view.radius(i), inv2a=inv2a)
+        else:
+            a_i = _slab_cover(ro, d, view.box_lo(i), view.box_hi(i), temp)["a"]
+            front = torch.ones_like(hit)
+            t_i, _ = intersect_cube(ro, d, view.box_lo(i), view.box_hi(i), inv=inv)
+        take = winner & front
+        alpha = torch.where(take, a_i, alpha)
+        geo = torch.where(take, i, geo)
+        cover = torch.where(front, a_i, 0.0)
+        better = ~hit & (cover > a_out)
+        a_out = torch.where(better, cover, a_out)
+        best = torch.where(better, i, best)
+        tt = torch.where(winner, BIG, t_i)
+        w2 = tt < t2
+        t2 = torch.where(w2, tt, t2)
+        second = torch.where(w2, i, second)
+    miss = ~hit
+    has2 = t2 < HIT_THRESHOLD
+    alpha = torch.where(miss, 1.0 - a_out, alpha)
+    geo = torch.where(miss, best, geo)
+    mat = torch.where(miss, best, torch.where(has2, second, -1))
+    proxy = miss | has2
+    s = sample_cubemap(cubemap, d, bilinear=cfg.env_filter == "bilinear")
+    sky0 = s.clip(0.0, 1.0)
+    alb, emis = _mat_rows(job.rows, mat, 6), _mat_rows(job.rows, mat, 12)
+    x = emis + alb * sky0
+    bg = Vec3.where(proxy, x.clip(0.0, 1.0), sky0)
+    cu = (u - 0.5) * cam[12]
+    cv = (v - 0.5) * cam[13]
+    return SoftPixels(u, v, cu, cv, ro, rd, d, hit, proxy, geo, mat, alpha, s, sky0, x, bg)
+
+
+def _mat_rows(rows, obj, col: int) -> Vec3:
+    """Columns col .. col + 2 of each pixel's object `obj`, 0 where it is -1."""
+    some = obj >= 0
+    k = obj.clamp(min=0)
+    return Vec3(*(torch.where(some, rows[k, col + c], 0.0) for c in range(3)))
+
+
+def soft_silhouettes_plain(job: TileJob, result, cubemap: CubemapData, row0: int = 0):
+    """The plain PyTorch version of the forward kernel: the (H,W,3) colour
+    `result` of the job's frame blended with the soft primary visibility,
+    result * alpha + bg * (1 - alpha) (soft_pixels); what
+    render/integrator.py::soft_silhouette_composite gives, bit for bit."""
+    p = soft_pixels(job, cubemap, row0)
+    return (Vec3(*result.unbind(-1)) * p.alpha + p.bg * (1.0 - p.alpha)).to_array()
+
+
+def _clip_pass(x, g):
+    """The cotangent min(max(x, 0), 1) passes: all, half exactly on 0 or 1,
+    none outside (_clip_code)."""
+    code = _clip_code(x)
+    return torch.where(code == SKY_CLIP_FULL, g, torch.where(code == SKY_CLIP_HALF, g * 0.5, 0.0))
+
+
+def _min_adjoint(a, b, g):
+    """torch.minimum's backward: the cotangent to the smaller input, half of
+    it to each on a tie."""
+    half = g * 0.5
+    return (torch.where(a == b, half, torch.where(a < b, g, 0.0)),
+            torch.where(a == b, half, torch.where(b < a, g, 0.0)))
+
+
+def _max_adjoint(a, b, g):
+    """torch.maximum's backward, as _min_adjoint."""
+    half = g * 0.5
+    return (torch.where(a == b, half, torch.where(a > b, g, 0.0)),
+            torch.where(a == b, half, torch.where(b > a, g, 0.0)))
+
+
+def _sphere_cover_adjoint(r16, ro: Vec3, d: Vec3, temp: float, ga):
+    """From ga, the cotangent of each pixel's sphere coverage (the sphere's
+    row r16, (H,W,16)): (cotangents of row columns 0-3, of d, of ro), in
+    autograd's steps through _sphere_cover."""
+    oc = Vec3(r16[..., 0], r16[..., 1], r16[..., 2]) - ro
+    along = oc.dot(d)
+    pd2 = oc.dot(oc) - along * along
+    d_perp = torch.sqrt(torch.clamp(pd2, min=1e-12))
+    r = r16[..., 3]
+    den = torch.clamp(r, min=1e-6) * temp
+    z = (r - d_perp) / den
+    a = torch.sigmoid(z)
+    gz = (ga * (1.0 - a)) * a
+    g_num = gz / den
+    g_r = torch.where(r >= 1e-6, g_num + (-gz * (z / den)) * temp, g_num)
+    g_pd2 = torch.where(pd2 >= 1e-12, -g_num / (2.0 * d_perp), 0.0)
+    g_along = (-g_pd2 * along) * 2.0
+    g_oc = d * g_along + oc * (2.0 * g_pd2)
+    return [g_oc.x, g_oc.y, g_oc.z, g_r], oc * g_along, -g_oc
+
+
+def _slab_cover_adjoint(r16, ro: Vec3, d: Vec3, temp: float, ga):
+    """The same for each pixel's box: cotangents of row columns 0-5 (origin,
+    size; hi = origin + size), of d and of ro, through _slab_cover."""
+    lo = Vec3(r16[..., 0], r16[..., 1], r16[..., 2])
+    hi = Vec3(r16[..., 0] + r16[..., 3], r16[..., 1] + r16[..., 4], r16[..., 2] + r16[..., 5])
+    c = _slab_cover(ro, d, lo, hi, temp)
+    gz = (ga * (1.0 - c["a"])) * c["a"]
+    g_m = gz / c["q"]
+    g_q = -gz * (c["z"] / c["q"])
+    g_m1, g_hi = _min_adjoint(c["m1"], c["q"] * 60.0, g_m)
+    g_m0, g_lo = _max_adjoint(c["m0"], c["q"] * -60.0, g_m1)
+    g_q = g_q + (g_hi * 60.0 + g_lo * -60.0)
+    g_size = torch.where(c["size3"] >= 1e-6, (g_q * temp) * (1.0 / 3.0), 0.0)
+    g_near = torch.where(c["near"] >= 0, -g_m0, 0.0)
+    sl = c["slabs"]
+    g_far1, g_tmax2 = _min_adjoint(c["far1"], sl[2]["tmax"], g_m0)
+    g_tmax0, g_tmax1 = _min_adjoint(sl[0]["tmax"], sl[1]["tmax"], g_far1)
+    g_near1, g_tmin2 = _max_adjoint(c["near1"], sl[2]["tmin"], g_near)
+    g_tmin0, g_tmin1 = _max_adjoint(sl[0]["tmin"], sl[1]["tmin"], g_near1)
+    g_row = [None] * 6
+    g_o, g_dc = [], []
+    for k, (g_n, g_x) in enumerate(((g_tmin0, g_tmax0), (g_tmin1, g_tmax1),
+                                    (g_tmin2, g_tmax2))):
+        s = sl[k]
+        ga1, gb1 = _min_adjoint(s["ta"], s["tb"], g_n)
+        ga2, gb2 = _max_adjoint(s["ta"], s["tb"], g_x)
+        g_ta, g_tb = ga1 + ga2, gb1 + gb2
+        live = ~s["zero"]
+        g_lo_k = torch.where(live, -g_size + g_ta / s["safe"], -g_size)
+        g_hi_k = torch.where(live, g_size + g_tb / s["safe"], g_size)
+        g_o.append(torch.where(live, -(g_ta / s["safe"]) - g_tb / s["safe"], 0.0))
+        g_dc.append(torch.where(live, -g_ta * (s["ta"] / s["safe"])
+                                + -g_tb * (s["tb"] / s["safe"]), 0.0))
+        g_row[k] = g_lo_k + g_hi_k
+        g_row[3 + k] = g_hi_k
+    return g_row, Vec3(*g_dc), Vec3(*g_o)
+
+
+def _soft_adjoint_terms(job: TileJob, g_out, result, cubemap: CubemapData, row0: int):
+    """Per pixel what soft_silhouettes_adjoint_plain sums: (the colour's
+    cotangent, the pixels' `geo` and their (H,W,6) cotangents of its row
+    columns 0-5 (-1 where alpha is a constant), the pixels' `mat` and their
+    (H,W,6) cotangents of its albedo and emission (-1 where bg is the sky or
+    no object's proxy), their (H,W,16) cotangents of the camera pack)."""
+    temp = job.config.soft_silhouette_temp
+    p = soft_pixels(job, cubemap, row0)
+    rows = job.rows
+    g = g_out.unbind(-1)
+    res = result.unbind(-1)
+    bg, x, sky0 = (p.bg.x, p.bg.y, p.bg.z), (p.x.x, p.x.y, p.x.z), (p.sky0.x, p.sky0.y, p.sky0.z)
+    g_result = g_out * p.alpha[..., None]
+    g_alpha = (g[0] * res[0] + g[1] * res[1] + g[2] * res[2]) \
+        - (g[0] * bg[0] + g[1] * bg[1] + g[2] * bg[2])
+    keep = 1.0 - p.alpha
+    alb = _mat_rows(rows, p.mat, 6)
+    some = p.mat >= 0
+    g_alb, g_emis, g_sky0 = [], [], []
+    for ch, a_c in enumerate((alb.x, alb.y, alb.z)):
+        g_bg = g[ch] * keep
+        gx = _clip_pass(x[ch], g_bg)
+        g_alb.append(gx * sky0[ch])
+        g_emis.append(gx)
+        g_sky0.append(torch.where(p.proxy, torch.where(some, gx * a_c, 0.0), g_bg))
+    has_geo = p.geo >= 0
+    r16 = rows[p.geo.clamp(min=0)]
+    g_cov = torch.where(p.hit, g_alpha, -g_alpha)
+    sph_row, sph_d, sph_ro = _sphere_cover_adjoint(r16, p.ro, p.d, temp, g_cov)
+    box_row, box_d, box_ro = _slab_cover_adjoint(r16, p.ro, p.d, temp, g_cov)
+    is_sph = r16[..., 15] == OBJ_SPHERE
+    zero = torch.zeros_like(p.alpha)
+    zero3 = Vec3(zero, zero, zero)
+    g_geo = [torch.where(has_geo, torch.where(is_sph, sph_row[k] if k < 4 else zero, box_row[k]),
+                         zero) for k in range(6)]
+    sph, box = has_geo & is_sph, has_geo & ~is_sph
+    g_d = Vec3.where(sph, sph_d, Vec3.where(box, box_d, zero3))
+    g_ro = Vec3.where(sph, sph_ro, Vec3.where(box, box_ro, zero3))
+    if _bilinear_arm(job.config.env_filter == "bilinear", cubemap):
+        s = (p.s.x, p.s.y, p.s.z)
+        g_s = Vec3(*(_clip_pass(s[ch], g_sky0[ch]) for ch in range(3)))
+        g_d = g_d + bilinear_adjoint(cubemap, p.d, g_s)
+    n = torch.sqrt(p.rd.dot(p.rd))
+    inv = 1.0 / n
+    g_n = -g_d.dot(p.rd) * (inv * inv)
+    g_rd = Vec3.where(n < NORMALIZE_EPS, g_d, g_d * inv + p.rd * (2.0 * (g_n / (2.0 * n))))
+    cam = job.cam_pack
+    ub, vb = Vec3(cam[3], cam[4], cam[5]), Vec3(cam[6], cam[7], cam[8])
+    g_cam = torch.stack([
+        g_ro.x, g_ro.y, g_ro.z, p.cu * g_rd.x, p.cu * g_rd.y, p.cu * g_rd.z,
+        p.cv * g_rd.x, p.cv * g_rd.y, p.cv * g_rd.z, -g_rd.x, -g_rd.y, -g_rd.z,
+        g_rd.dot(ub) * (p.u - 0.5), g_rd.dot(vb) * (p.v - 0.5), zero, zero], dim=-1)
+    mat = torch.where(some & p.proxy, p.mat, -1)
+    return (g_result, torch.where(has_geo, p.geo, -1), torch.stack(g_geo, dim=-1), mat,
+            torch.stack([*g_alb, *g_emis], dim=-1), g_cam)
+
+
+def _sum_adjoint_terms(rows, terms, magnitude: bool = False):
+    """(rows' cotangent (N,16), camera's (16,)) summed from
+    _soft_adjoint_terms over the pixels; with `magnitude` the sums of the
+    terms' magnitudes."""
+    _, geo, g_geo, mat, g_mat, g_cam = terms
+    if magnitude:
+        g_geo, g_mat, g_cam = g_geo.abs(), g_mat.abs(), g_cam.abs()
+    g_rows = torch.zeros_like(rows)
+    on = (geo >= 0).reshape(-1)
+    g_rows[:, 0:6].index_put_((geo.reshape(-1)[on],), g_geo.reshape(-1, 6)[on], accumulate=True)
+    on = (mat >= 0).reshape(-1)
+    flat = g_mat.reshape(-1, 6)[on]
+    g_rows[:, 6:9].index_put_((mat.reshape(-1)[on],), flat[:, :3], accumulate=True)
+    g_rows[:, 12:15].index_put_((mat.reshape(-1)[on],), flat[:, 3:], accumulate=True)
+    return g_rows, g_cam.reshape(-1, 16).sum(dim=0)
+
+
+def soft_silhouettes_adjoint_plain(job: TileJob, g_out, result, cubemap: CubemapData,
+                                   row0: int = 0):
+    """The plain PyTorch version of the adjoint kernel, written out by hand:
+    from the (H,W,3) cotangent g_out of soft_silhouettes_plain's result,
+    (the cotangent of `result`, of the scene rows (N,16), of the camera pack
+    (16,)). The composite is found again (soft_pixels); alpha's cotangent
+    goes through the coverage of `geo` to its row's centre and radius or
+    origin and size, and to d and ro; bg's through the proxy's clip to the
+    albedo and emission of `mat` and to the sky, whose bilinear lookup takes
+    it to d (ops/cubemap.py::bilinear_adjoint); d's through normalize and
+    the primary ray to the camera pack. Each step is autograd's over the
+    composite; the sums over pixels come in another order."""
+    terms = _soft_adjoint_terms(job, g_out, result, cubemap, row0)
+    return (terms[0], *_sum_adjoint_terms(job.rows, terms))
+
+
+def soft_silhouettes_adjoint_scale(job: TileJob, g_out, result, cubemap: CubemapData,
+                                   row0: int = 0):
+    """(rows (N,16), camera (16,)): the sums over the pixels of the
+    magnitudes of the terms the adjoint adds into each cotangent, the
+    yardstick for a sum of the same terms in another order."""
+    return _sum_adjoint_terms(job.rows, _soft_adjoint_terms(job, g_out, result, cubemap, row0),
+                              magnitude=True)
+
+
+def _soft_args(job: TileJob, cubemap: CubemapData, row0: int):
+    """The C arguments of the kernels after their tensors and before their
+    outputs: the sky, its arm, the objects, the frame and the temperature."""
+    _check_job(job)
+    sky = _sky_pointers(cubemap, job.rows.device)
+    arm = _bilinear_arm(job.config.env_filter == "bilinear", cubemap)
+    return (*sky, int(arm), len(job.obj_type), job.width, job.height, job.norm_height,
+            int(row0), float(job.config.soft_silhouette_temp))
+
+
+_SOFT_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float]
+
+
+def _launch_soft_silhouettes(job: TileJob, result, cubemap: CubemapData, row0: int = 0):
+    """Launch the forward kernel on PyTorch's current stream: the (H,W,3)
+    result of soft_silhouettes_plain. Does not synchronise; raises when the
+    launch is refused."""
+    dev = job.rows.device
+    frame = (job.height, job.width)
+    _check_tensor("colour", result, (*frame, 3), torch.float32, dev)
+    args = _soft_args(job, cubemap, row0)
+    lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_soft_silhouettes",
+                    [ctypes.c_void_p] * 7 + _SOFT_ARGS + [ctypes.c_void_p] * 2)
+    with torch.cuda.device(dev):
+        out = torch.empty((*frame, 3), dtype=torch.float32, device=dev)
+        err = fn(result.data_ptr(), job.rows.data_ptr(), job.cam_pack.data_ptr(), *args,
+                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "soft_silhouettes")
+    launch_counts["soft_silhouettes"] += 1
+    return out
+
+
+def _launch_soft_silhouettes_adjoint(job: TileJob, g_out, result, cubemap: CubemapData,
+                                     row0: int = 0, rows_grad: bool = True,
+                                     cam_grad: bool = True):
+    """Launch the adjoint kernel on PyTorch's current stream: the cotangents
+    of soft_silhouettes_adjoint_plain, None for the rows without `rows_grad`
+    and for the camera without `cam_grad` (the kernel then writes none).
+    Does not synchronise; raises when the launch is refused."""
+    dev = job.rows.device
+    frame = (job.height, job.width)
+    _check_tensor("colour", result, (*frame, 3), torch.float32, dev)
+    # autograd may hand over an expanded or strided cotangent
+    g_out = g_out.contiguous()
+    _check_tensor("composite's cotangent", g_out, (*frame, 3), torch.float32, dev)
+    args = _soft_args(job, cubemap, row0)
+    lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_soft_silhouettes_adjoint",
+                    [ctypes.c_void_p] * 8 + _SOFT_ARGS + [ctypes.c_void_p] * 4)
+    with torch.cuda.device(dev):
+        g_result = torch.empty((*frame, 3), dtype=torch.float32, device=dev)
+        g_rows = torch.zeros_like(job.rows) if rows_grad else None
+        g_cam = torch.zeros_like(job.cam_pack) if cam_grad else None
+        err = fn(g_out.data_ptr(), result.data_ptr(), job.rows.data_ptr(),
+                 job.cam_pack.data_ptr(), *args, g_result.data_ptr(),
+                 None if g_rows is None else g_rows.data_ptr(),
+                 None if g_cam is None else g_cam.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "soft_silhouettes_adjoint")
+    launch_counts["soft_silhouettes_adjoint"] += 1
+    return g_result, g_rows, g_cam
+
+
+class SoftSilhouetteFunction(torch.autograd.Function):
+    """The soft silhouettes' composite of a frame as a differentiable
+    function of its (H,W,3) colour, the scene rows and the camera pack. The
+    sky is constant.
+
+    forward: the forward kernel (soft_silhouettes_plain on the CPU), keeping
+    the colour and no graph. backward: the adjoint kernel
+    (soft_silhouettes_adjoint_plain on the CPU) finds the composite again
+    and writes the cotangents of the colour and of those of the rows and
+    the camera that require grad."""
+
+    @staticmethod
+    def forward(ctx, result, rows, cam_pack, job, cubemap, row0):
+        job = dataclasses.replace(job, rows=rows.detach(), cam_pack=cam_pack.detach())
+        if rows.device.type == "cuda":
+            out = _launch_soft_silhouettes(job, result.detach(), cubemap, row0)
+        else:
+            out = soft_silhouettes_plain(job, result.detach(), cubemap, row0)
+        ctx.save_for_backward(result, rows, cam_pack)
+        ctx.job = dataclasses.replace(job, rows=None, cam_pack=None)
+        ctx.cubemap, ctx.row0 = cubemap, row0
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        result, rows, cam_pack = ctx.saved_tensors
+        want_rows, want_cam = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
+        job = dataclasses.replace(ctx.job, rows=rows.detach(), cam_pack=cam_pack.detach())
+        with span("kernel.soft_silhouettes_adjoint"):
+            if rows.device.type == "cuda":
+                g_result, g_rows, g_cam = _launch_soft_silhouettes_adjoint(
+                    job, g_out, result.detach(), ctx.cubemap, ctx.row0, want_rows, want_cam)
+            else:
+                g_result, g_rows, g_cam = soft_silhouettes_adjoint_plain(
+                    job, g_out, result.detach(), ctx.cubemap, ctx.row0)
+        return (g_result if ctx.needs_input_grad[0] else None,
+                g_rows if want_rows else None, g_cam if want_cam else None, None, None, None)
+
+
+def soft_silhouettes(job: TileJob, result, cubemap: CubemapData, row0: int = 0):
+    """The (H,W,3) colour `result` of the job's frame (rows row0 .. of a
+    norm_height-tall frame) blended with the soft primary visibility:
+    through SoftSilhouetteFunction where the colour, the scene rows or the
+    camera pack require grad, else the forward alone (the kernel on the
+    card, soft_silhouettes_plain on the CPU)."""
+    if torch.is_grad_enabled() and (result.requires_grad or job.rows.requires_grad
+                                    or job.cam_pack.requires_grad):
+        return SoftSilhouetteFunction.apply(result, job.rows, job.cam_pack, job, cubemap, row0)
+    if job.rows.device.type == "cuda":
+        return _launch_soft_silhouettes(job, result, cubemap, row0)
+    return soft_silhouettes_plain(job, result, cubemap, row0)
 
 
 def frame_sample_seeds(seed: int, spp: int, first_sample: int = 0,
@@ -1540,9 +2031,7 @@ def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
         if spp > 1:
             total = total * (1.0 / spp)
         if cfg.soft_silhouette_temp > 0:
-            if fused:
-                total = Vec3(*total.unbind(-1))
-            total = _soft_silhouettes(job, total, cubemap, row0)
+            total = _soft_silhouettes(job, total, cubemap, row0, plain=plain_sky)
         return (total.to_array() if isinstance(total, Vec3) else total), cache
 
 

@@ -13,8 +13,10 @@ cpu`` of the CLI) and what the kernels are held against. ``render_pixels`` is th
 at arbitrary screen coordinates through the same estimator.
 
 ``soft_silhouette_composite`` (training only; ``config.soft_silhouette_temp``)
-lives here too, as in the JAX package: plain PyTorch outside any kernel,
-shared by both renderers through ``render_frame``.
+lives here too, as in the JAX package: plain PyTorch outside any kernel.
+``render_frame`` takes it for ``render_image``, on the CPU and for a sky
+that requires grad; ``render_image_cuda`` on the card takes the kernels
+that repeat it (kernels/megakernel.py::soft_silhouettes).
 """
 
 from __future__ import annotations

@@ -222,7 +222,8 @@ def test_launch_counts_do_not_move_on_the_cpu():
                                  "megakernel_bwd_fetch": 0, "megakernel_bwd_replay": 0,
                                  "megakernel_bwd_direct": 0, "sky_compose": 0,
                                  "sky_compose_adjoint": 0, "sky_compose_bilinear": 0,
-                                 "sky_compose_bilinear_adjoint": 0}
+                                 "sky_compose_bilinear_adjoint": 0, "soft_silhouettes": 0,
+                                 "soft_silhouettes_adjoint": 0}
 
 
 def test_sample_seeds_wrap_like_int32():
