@@ -23,7 +23,7 @@ processes on the card through gloo, fit's checkpoints and resume, the
 invert app's coarse-to-fine schedule and resume, the pose recovery and the
 sharded fly-through, entry.dryrun_multichip), the measurement path (the
 port's bench, whose JSON line it prints on a line of its own, and the
-gather probe with the sparse sky cache on and off) and times the kernels.
+gather probe, on its own indices and on the sky's) and times the kernels.
 Every phase prints one JSON line with the seconds it took (three to four
 minutes in all on an H100, the kernels' build included); any phase that
 fails raises and the run exits non-zero.
@@ -99,7 +99,7 @@ from ray_tracing_tpu_torch.ops.vec import Vec3
 from ray_tracing_tpu_torch.parallel.distributed import global_mesh, initialize, local_tile_range
 from ray_tracing_tpu_torch.parallel.mesh import make_mesh
 from ray_tracing_tpu_torch.parallel.render import render_image_sharded
-from ray_tracing_tpu_torch.render.camera import Camera, rotate
+from ray_tracing_tpu_torch.render.camera import Camera
 from ray_tracing_tpu_torch.render.film import (
     Film,
     lowres_size,
@@ -176,10 +176,6 @@ GATHER_RAGGED = (1, 7, 8 * 1021 + 3)
 GATHER_OFFSETS = (1, 2, 3, 5)
 # Windows of the gather's times in gather_times, of which the median counts.
 GATHER_WINDOWS = 5
-# A stale sky cache comes from the camera turned by this much (yaw, pitch).
-STALE_TURN = (400.0, 120.0)
-# The sparse sky lookup, which is off by default.
-SPARSE_SKY = RenderConfig(sky_sparse_gather=True)
 
 # Float operations (add, sub, mul, div, sqrt each count 1; comparisons,
 # selects and the integer work of the generator count 0), counted by hand
@@ -944,9 +940,9 @@ def bilinear_vs_plain(planes, prev, g, cm) -> dict:
     planes within 2e-6 of bilinear_adjoint_scale
     (tests/test_torch_sky_compose.py says why). Raises on a difference."""
     cfg = RenderConfig(env_filter="bilinear")
-    got, state, _ = mk._launch_sky_compose(planes, prev, cm, False, True, bilinear=True)
+    got, state = mk._launch_sky_compose(planes, prev, cm, True, bilinear=True)
     g_planes = mk._launch_sky_compose_adjoint(g, state, cm, bilinear=True)
-    want, w_state, _ = mk.sky_compose_plain(planes, prev, cm, keep_state=True, bilinear=True)
+    want, w_state = mk.sky_compose_plain(planes, prev, cm, keep_state=True, bilinear=True)
     w_g = mk.sky_compose_adjoint_plain(g, w_state, cm, bilinear=True)
     p = planes.clone().requires_grad_(True)
     lookup = prev + mk.compose(p, cm, cfg).to_array()
@@ -1006,9 +1002,9 @@ def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
         g = torch.randn((HEIGHT, WIDTH, 3), generator=gen, device=dev)
         res = {}
         for sky_name, cm in skies.items():
-            got, state, _ = mk._launch_sky_compose(planes, prev, cm, False, True)
+            got, state = mk._launch_sky_compose(planes, prev, cm, True)
             g_planes = mk._launch_sky_compose_adjoint(g, state, cm)
-            want, w_state, _ = mk.sky_compose_plain(planes, prev, cm, keep_state=True)
+            want, w_state = mk.sky_compose_plain(planes, prev, cm, keep_state=True)
             w_g = mk.sky_compose_adjoint_plain(g, w_state, cm)
             p = planes.clone().requires_grad_(True)
             lookup = prev + mk.compose(p, cm, cfg).to_array()
@@ -1030,23 +1026,21 @@ def phase_sky_compose_vs_plain(scenes, camera, sky) -> dict:
                              "miss_cotangent_max_rel_err": float(
                                  (off / a_g[9].abs().clamp_min(1e-30)).max())}
         acc = prev.clone()
-        _, state, _ = mk._launch_sky_compose(planes, prev, sky, False, True)
+        _, state = mk._launch_sky_compose(planes, prev, sky, True)
         res.update(
-            kernel_ms=time_launches(lambda i: mk._launch_sky_compose(planes, acc, sky, False,
-                                                                     False), 50),
-            state_ms=time_launches(lambda i: mk._launch_sky_compose(planes, prev, sky, False,
-                                                                    True), 50),
+            kernel_ms=time_launches(lambda i: mk._launch_sky_compose(planes, acc, sky, False), 50),
+            state_ms=time_launches(lambda i: mk._launch_sky_compose(planes, prev, sky, True), 50),
             adjoint_ms=time_launches(lambda i: mk._launch_sky_compose_adjoint(g, state, sky), 50),
             plain_ms=time_launches(lambda i: prev + mk.compose(planes, sky, cfg).to_array(), 20),
             **sky_compose_bound(sky, planes))
         bil = {n: bilinear_vs_plain(planes, prev, g, cm)
                for n, cm in (("checker", sky), ("gradient", grad_sky))}
-        _, state, _ = mk._launch_sky_compose(planes, prev, grad_sky, False, True, bilinear=True)
+        _, state = mk._launch_sky_compose(planes, prev, grad_sky, True, bilinear=True)
         bil.update(
             kernel_ms=time_launches(lambda i: mk._launch_sky_compose(
-                planes, acc, grad_sky, False, False, bilinear=True), 50),
+                planes, acc, grad_sky, False, bilinear=True), 50),
             state_ms=time_launches(lambda i: mk._launch_sky_compose(
-                planes, prev, grad_sky, False, True, bilinear=True), 50),
+                planes, prev, grad_sky, True, bilinear=True), 50),
             adjoint_ms=time_launches(lambda i: mk._launch_sky_compose_adjoint(
                 g, state, grad_sky, bilinear=True), 50),
             plain_ms=time_launches(
@@ -1281,12 +1275,9 @@ def phase_bench_path(scenes, camera, sky) -> dict:
     """The port's bench (python -m ray_tracing_tpu_torch.bench) at its full
     size, its JSON line printed on a line of its own; every launch counter
     set to 0 before it and read after it (the sky compose kernel among
-    them). Then the sky cache's exactness on the bench's frame, with the
-    sparse lookup off (the default: the sky compose kernel) and on: 8
-    samples of scene_2 with the cache seeded by sample 0, with a threaded
-    cache and with a stale one from a turned camera, each equal bit for bit
-    to the frame of the plain lookup and compose (plain_lookup_frame), which
-    keeps no cache."""
+    them). Then the bench's frame, 8 samples of scene_2 through the sky
+    compose kernel, against the frame of the plain lookup and compose
+    (plain_lookup_frame), bit for bit."""
     mk.reset_launch_counts()
     peak.reset_launch_counts()
     gather_probe.reset_launch_counts()
@@ -1307,33 +1298,18 @@ def phase_bench_path(scenes, camera, sky) -> dict:
         raise RuntimeError(f"bench: an FMA peak of {vpu['flops_per_s']:.4g} FLOP/s is above "
                            f"1.05 x the published {PEAK_FLOPS:.4g}: the timing is wrong")
 
-    scene = scenes["scene_2"]
-    turned = rotate(camera, *STALE_TURN, RenderConfig())
-    equal = {}
-    for lookup, cfg in (("full", RenderConfig()), ("sparse", SPARSE_SKY)):
-        # the uncached frame: the kernel's samples, each through the plain
-        # lookup and compose
-        job = mk.make_tile_job(scene, camera, WIDTH, HEIGHT, cfg)
-        dense = plain_lookup_frame(job, 5, SPP, sky)
-        seeded, cache = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP,
-                                             config=cfg, cubemap=sky, return_sky_cache=True)
-        threaded = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP, config=cfg,
-                                        cubemap=sky, sky_cache=cache)
-        _, stale = mk.render_image_cuda(scene, turned, WIDTH, HEIGHT, 6, spp=2, config=cfg,
-                                        cubemap=sky, return_sky_cache=True)
-        with_stale = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP, config=cfg,
-                                          cubemap=sky, sky_cache=stale)
-        equal[lookup] = {"seeded": bool(seeded.equal(dense)),
-                         "threaded": bool(threaded.equal(dense)),
-                         "stale": bool(with_stale.equal(dense))}
-    if not all(all(e.values()) for e in equal.values()):
-        raise RuntimeError(f"the sky cache changed the frame: {equal}")
+    scene, cfg = scenes["scene_2"], RenderConfig()
+    job = mk.make_tile_job(scene, camera, WIDTH, HEIGHT, cfg)
+    frame = mk.render_image_cuda(scene, camera, WIDTH, HEIGHT, 5, spp=SPP, config=cfg,
+                                 cubemap=sky)
+    if not frame.equal(plain_lookup_frame(job, 5, SPP, sky)):
+        raise RuntimeError("the bench's frame differs from the plain lookup and compose")
     emit("bench_path", line=res["line"], bwd_mode=res["bwd_mode"],
          seconds_per_sample=res["seconds_per_sample"],
          census_flops_per_px=res["census_flops_per_px"], census_tflops=res["census_tflops"],
          census_share_of_fma_peak=res["census_share_of_fma_peak"], fma_peak=vpu,
          bf16_peak=res["bf16_peak"], fingerprint=res["fingerprint"], launches=counts,
-         cached_frames_equal_uncached=equal, spp=SPP)
+         frame_equals_plain_lookup=True, spp=SPP)
     return {"counts": counts, "fma_peak": vpu}
 
 
@@ -1354,10 +1330,9 @@ def time_host(fn, n: int) -> float:
 def phase_sky_gather(scenes, camera, sky) -> dict:
     """Module 8's question on the card. The gather probe (P1) through its own
     entry point, launch counter set to 0 before and read after; then, at the
-    main path's shape, what a sample's sky lookup costs through the full
-    gather and through the sparse cache, the P1 kernel and PyTorch's
-    indexing on the real texel indices, and whole 8-spp frames with the
-    sparse path on and off (in the order on, off, off, on)."""
+    main path's shape, what a sample's plain sky lookup and compose cost,
+    the P1 kernel and PyTorch's indexing on the real texel indices, and
+    whole 8-spp frames (two medians)."""
     gather_probe.reset_launch_counts()
     probe = gather_probe.run()
     torch.cuda.synchronize()
@@ -1375,32 +1350,17 @@ def phase_sky_gather(scenes, camera, sky) -> dict:
     per_scene = {}
     for name in ("scene_2", "room"):
         job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, cfg)
-        p0, _ = mk.run_tiles(job, 4)
         p1, _ = mk.run_tiles(job, 5)
-        flat0, miss0 = mk._miss_texel_index(sky, p0)
         flat1, miss1 = mk._miss_texel_index(sky, p1)
-        packed0 = mk.sparse_sky_lookup(sky, flat0, miss0)
-        fresh = miss1 & ~(miss0 & (flat1 == flat0))
-        blocks = fresh.reshape(-1, mk.SPARSE_BLOCK).any(dim=1)
-        r = {"miss_share": float(miss1.float().mean()),
-             "fresh_pixel_share": float(fresh.float().mean()),
-             "fresh_block_share": float(blocks.float().mean()),
-             "full_lookup_compose_ms": time_host(lambda i: mk.compose(p1, sky, cfg), 10),
-             "sparse_lookup_compose_ms": time_host(lambda i: mk.compose_sky(
-                 p1, mk.unpack_texels(mk.sparse_sky_lookup(sky, flat1, miss1, flat0, packed0,
-                                                           miss0))), 10),
-             "gather_kernel_ms": device_seconds(lambda i: gather_probe.gather(sky.packed, flat1),
-                                                8) * 1e3,
-             "torch_index_ms": device_seconds(lambda i: sky.packed[flat1], 8) * 1e3}
-        frames = {}
-        for sparse in (True, False, False, True):
-            frames.setdefault(sparse, []).append(time_frames(
-                scenes[name], camera, sky, SPARSE_SKY if sparse else cfg, 5))
-        r["frame_ms_sparse"] = frames[True]
-        r["frame_ms_full"] = frames[False]
-        per_scene[name] = r
+        per_scene[name] = {
+            "miss_share": float(miss1.float().mean()),
+            "full_lookup_compose_ms": time_host(lambda i: mk.compose(p1, sky, cfg), 10),
+            "gather_kernel_ms": device_seconds(lambda i: gather_probe.gather(sky.packed, flat1),
+                                               8) * 1e3,
+            "torch_index_ms": device_seconds(lambda i: sky.packed[flat1], 8) * 1e3,
+            "frame_ms": [time_frames(scenes[name], camera, sky, cfg, 5) for _ in range(2)]}
     emit("sky_gather", probe=probe, launches=launches, size=[WIDTH, HEIGHT], spp=SPP,
-         sky=[SKY_SIZE, SKY_SIZE], unit="ms (frame_ms_*: per 8-spp frame, two medians each)",
+         sky=[SKY_SIZE, SKY_SIZE], unit="ms (frame_ms: per 8-spp frame, two medians)",
          gather_cases=cases, **per_scene)
     return {"probe": probe, "launches": launches, "cases": cases}
 
@@ -1578,11 +1538,11 @@ def film_session(render_fn, scene, camera, width, height, seed, full_passes, dev
     `full_passes` more full-res passes, each followed by the display
     frame's resolve to uint8 and its copy to the host (the one
     synchronisation of a pass). Returns (film, per-pass records)."""
-    film, cache, records = Film.zero(width, height, device=device), None, []
+    film, records = Film.zero(width, height, device=device), []
     t_start = time.perf_counter()
     for n, scale in enumerate(progressive_scales(cfg) + [1] * full_passes):
         t0 = time.perf_counter()
-        film, cache, spp = render_fn(scene, camera, film, pass_seed(seed, n), scale, cache)
+        film, spp = render_fn(scene, camera, film, pass_seed(seed, n), scale)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         resolve_u8(film).cpu()
@@ -1595,7 +1555,7 @@ def film_session(render_fn, scene, camera, width, height, seed, full_passes, dev
 
 def phase_film_vs_plain(scenes, camera, sky) -> dict:
     """The whole pyramid and two more full-res passes at 320x240 through
-    make_cuda_render_fn (K1, the sky cache threaded) and through the plain
+    make_cuda_render_fn (K1 and the sky compose) and through the plain
     render_pass on the card with the same seeds: the films within 1e-6,
     and K1 launched once per sample."""
     cfg = RenderConfig(init_scale=8)
@@ -1648,8 +1608,6 @@ def phase_film_path(scenes, camera, sky) -> dict:
         per_scale = {}
         for scale in progressive_scales(cfg):
             rs = [r for r in records if r["scale"] == scale]
-            if scale == 1:
-                rs = rs[1:]  # the first full-res pass seeds the sky cache
             lw, lh = lowres_size(FILM_W, FILM_H, scale)
             job = mk.make_tile_job(scenes[name], camera, lw, lh, cfg, aspect=FILM_W / FILM_H)
             per_scale[scale] = {
@@ -1880,8 +1838,8 @@ def frame_gradient_plain(scene, camera, sky, cfg, seed: int = 1, spp: int = SPP)
     h = HEIGHT // TRAIN_SLICES
     for k in range(TRAIN_SLICES):
         job = mk.make_tile_job(scene_l, cam_l, WIDTH, h, cfg, norm_height=HEIGHT)
-        img, _ = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h,
-                                 plain_sky=True)
+        img = mk.render_frame(job, plain_replay_tiles, seed, spp, sky, row0=k * h,
+                              plain_sky=True)
         img.sum().backward()  # adds into the leaves' gradients
     return {n: t.grad for n, t in leaves.items()}
 
@@ -2296,8 +2254,7 @@ def phase_two_process(device) -> dict:
 def phase_fit_resume(scenes, camera, sky) -> dict:
     """fit on the room at 1920x1080 with checkpoint_dir: RESUME_STEPS steps
     with a checkpoint every RESUME_EVERY, then asked for twice as many,
-    against two uninterrupted runs of that many (default physics, so the
-    sky cache is threaded)."""
+    against two uninterrupted runs of that many (default physics)."""
     room = scenes["room"]
     with torch.no_grad():
         target = mk.render_image_cuda(room, camera, WIDTH, HEIGHT, seed=99, spp=SPP, cubemap=sky)

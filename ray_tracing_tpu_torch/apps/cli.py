@@ -25,8 +25,8 @@ import argparse
 import sys
 
 # Samples of a full-res pass of the viewer and the server. More than one
-# per pass lets the sky cache serve the pass's samples after the first;
-# the pyramid's passes take one.
+# per pass spreads a pass's fixed costs (the TileJob, the resolve and the
+# frame's copy) over its samples; the pyramid's passes take one.
 FULL_RES_SPP = 4
 
 
@@ -76,27 +76,20 @@ def load_sky(no_skybox: bool, assets, device):
 
 def make_cuda_render_fn(config, cubemap, device=None):
     """The pass of the viewer and the server, through render_pass_cuda (K1
-    on the card): render_fn(scene, camera, film, seed, scale, sky_cache) ->
-    (film, sky_cache, spp). Pyramid passes take one sample and hand the
-    cache through untouched (their planes have other shapes); full-res
-    passes take FULL_RES_SPP samples and thread the cache from pass to pass
-    at the fixed camera. device=None means the card; on "cpu" the passes
-    run the kernel's plain version."""
+    on the card): render_fn(scene, camera, film, seed, scale) -> (film,
+    spp). Pyramid passes take one sample, full-res passes FULL_RES_SPP.
+    device=None means the card; on "cpu" the passes run the kernel's plain
+    version."""
     from ray_tracing_tpu_torch.device import resolve_device
     from ray_tracing_tpu_torch.render.film import render_pass_cuda
 
     device = resolve_device(device)
     cubemap = cubemap.to(device)
 
-    def render_fn(scene, camera, film, seed, scale, sky_cache=None):
-        if scale != 1:
-            film = render_pass_cuda(scene, camera, film, seed, scale, config, cubemap,
-                                    spp=1, device=device)
-            return film, sky_cache, 1
-        film, cache = render_pass_cuda(scene, camera, film, seed, 1, config, cubemap,
-                                       spp=FULL_RES_SPP, sky_cache=sky_cache,
-                                       return_sky_cache=True, device=device)
-        return film, cache, FULL_RES_SPP
+    def render_fn(scene, camera, film, seed, scale):
+        spp = 1 if scale != 1 else FULL_RES_SPP
+        return render_pass_cuda(scene, camera, film, seed, scale, config, cubemap, spp=spp,
+                                device=device), spp
 
     return render_fn
 

@@ -112,7 +112,6 @@ class RenderService:
         self.meter = RateMeter()
         # (event, arrival) pairs; 512 slots like the reference's ring
         self.events: queue.Queue = queue.Queue(maxsize=512)
-        self._sky_cache = None
         # what HTTP threads read: the published frame and its film's
         # weight, under frame_lock
         self.frame_lock = threading.Lock()
@@ -143,7 +142,6 @@ class RenderService:
     def invalidate(self):
         self.film = Film.zero(self.width, self.height, device=self.device)
         self.pass_i = 0
-        self._sky_cache = None  # exact across camera moves, but its hits die
 
     def handle(self, ev: str) -> bool:
         """Apply one event; True when it moved the camera (and so
@@ -235,9 +233,8 @@ class RenderService:
             if self.handle(ev) and self._lat_start is None:
                 self._lat_start = arrival
         scale = self.scales[min(self.pass_i, len(self.scales) - 1)]
-        self.film, self._sky_cache, spp = self.render_fn(
-            self.scene, self.camera, self.film, pass_seed(self.seed, self.passes_done),
-            scale, self._sky_cache)
+        self.film, spp = self.render_fn(self.scene, self.camera, self.film,
+                                        pass_seed(self.seed, self.passes_done), scale)
         frame = resolve_u8(self.film).cpu().numpy()  # the pass's one synchronisation
         weight = float(self.film.weight)
         with self.frame_lock:

@@ -176,11 +176,9 @@ def frame_to_ansi(img: np.ndarray) -> str:
 class Viewer:
     """The progressive interactive loop.
 
-    render_fn(scene, camera, film, seed, scale, sky_cache) -> (film,
-    sky_cache, spp) renders one pass (apps/cli.py::make_cuda_render_fn):
-    the sky cache it returns is handed to the next pass and dropped with the
-    film, and spp is what the pass took, which the rays/s count uses. The
-    film lies on the scene's device."""
+    render_fn(scene, camera, film, seed, scale) -> (film, spp) renders one
+    pass (apps/cli.py::make_cuda_render_fn): spp is what the pass took,
+    which the rays/s count uses. The film lies on the scene's device."""
 
     def __init__(self, scene, camera, width, height, config: RenderConfig, render_fn,
                  resolve_fn=None, out=sys.stdout):
@@ -196,18 +194,15 @@ class Viewer:
         self.scales = progressive_scales(config)
         self.pass_i = 0
         self.frame_count = 0
-        self.sky_cache = None
         self.meter = RateMeter()
         self._cell_px = None
         self._mouse_last = None
 
     def invalidate(self):
-        """invalidate_accumulation (src/main.c:115-124): a fresh film, the
-        pyramid again, and no sky cache (it stays exact across camera moves
-        but its hits die with them; a resize changes its shape)."""
+        """invalidate_accumulation (src/main.c:115-124): a fresh film and the
+        pyramid again."""
         self.film = Film.zero(self.width, self.height, device=self.scene.device)
         self.pass_i = 0
-        self.sky_cache = None
 
     def resize(self, width: int, height: int):
         """realloc_frame_buffer (src/main.c:416-448): buffers of the new
@@ -292,8 +287,7 @@ class Viewer:
         """One refinement pass at the current pyramid scale, seeded `seed`;
         returns the scale."""
         scale = self.scales[min(self.pass_i, len(self.scales) - 1)]
-        self.film, self.sky_cache, spp = self.render_fn(
-            self.scene, self.camera, self.film, seed, scale, self.sky_cache)
+        self.film, spp = self.render_fn(self.scene, self.camera, self.film, seed, scale)
         # each pass at the samples it really took (the JAX viewer counts
         # every pass as one sample, which reads 4x low at full res)
         lw, lh = lowres_size(self.width, self.height, scale)

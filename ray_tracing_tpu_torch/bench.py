@@ -14,10 +14,6 @@ at 32 samples. The sky is a 2048^2 packed synthetic checker cubemap: the
 reference's JPEG skybox is not part of the repository, and the metric string
 says so. Inside the metric string, beside the headline:
 
-  * steady-state training fwd+bwd: the same call fed a sky cache threaded
-    from an earlier call (render_image_cuda's sky_cache), as a training loop
-    at a fixed camera would. The sky lookup is the default's full gather
-    (sky_sparse_gather off), which only passes the cache through;
   * fwd-only, and constant-sky fwd (no texel gather);
   * the census rate: the float operations that the census of the plain
     estimator counts (utils/flops.py, at the JAX package's prices) per
@@ -75,23 +71,22 @@ PEAK_TRIES = 3
 PEAK_RATIO = (1.6, 2.5)
 
 
-def frame_sum_fn(camera, width, height, spp, config, cubemap, sky_cache=None):
+def frame_sum_fn(camera, width, height, spp, config, cubemap):
     """f(scene, seed) -> the sum of a rendered frame (one value to read)."""
     def f(scene, seed):
         return render_image_cuda(scene, camera, width, height, seed, spp=spp, config=config,
-                                 cubemap=cubemap, sky_cache=sky_cache,
-                                 device=scene.device).sum()
+                                 cubemap=cubemap, device=scene.device).sum()
     return f
 
 
-def frame_grad_fn(camera, width, height, spp, config, cubemap, sky_cache=None):
+def frame_grad_fn(camera, width, height, spp, config, cubemap):
     """f(scene, seed) -> the gradients of a frame's sum with respect to
     every scene parameter (SCENE_PARAM_FIELDS)."""
     def f(scene, seed):
         leaves = {n: getattr(scene, n).detach().requires_grad_() for n in SCENE_PARAM_FIELDS}
         img = render_image_cuda(dataclasses.replace(scene, **leaves), camera, width, height,
                                 seed, spp=spp, config=config, cubemap=cubemap,
-                                sky_cache=sky_cache, device=scene.device)
+                                device=scene.device)
         return torch.autograd.grad(img.sum(), list(leaves.values()))
     return f
 
@@ -143,18 +138,12 @@ def run(device=None, width: int = WIDTH, height: int = HEIGHT,
     args = (camera, width, height)
     t_bwd = timed_per_sample(frame_grad_fn(*args, spp_bwd, config, sky), scene, n=spp_bwd)
     t_fwd = timed_per_sample(frame_sum_fn(*args, spp_fwd, config, sky), scene, n=spp_fwd)
-    # steady-state training: a cache threaded from an earlier call at this
-    # camera makes every sample's sky lookup sparse (exact whatever its state)
-    _, cache = render_image_cuda(scene, camera, width, height, 0, spp=2, config=config,
-                                 cubemap=sky, return_sky_cache=True, device=device)
-    t_bwd_ss = timed_per_sample(frame_grad_fn(*args, spp_bwd, config, sky, cache), scene,
-                                n=spp_bwd)
     t_const = timed_per_sample(frame_sum_fn(*args, spp_fwd, config, const), scene, n=spp_fwd)
 
     counted = flops_per_pixel(scene, config, bwd_mode)
     px = width * height
     out = {"bwd_mode": bwd_mode, "seconds_per_sample": {
-               "fwd_bwd": t_bwd, "fwd": t_fwd, "fwd_bwd_steady": t_bwd_ss, "const_fwd": t_const},
+               "fwd_bwd": t_bwd, "fwd": t_fwd, "const_fwd": t_const},
            "census_flops_per_px": counted,
            "census_tflops": {"const_fwd": counted["fwd"] * px / t_const / 1e12,
                              "fwd_bwd": counted["fwd_bwd"] * px / t_bwd / 1e12}}
@@ -182,12 +171,10 @@ def run(device=None, width: int = WIDTH, height: int = HEIGHT,
     out["fingerprint"] = fp
     sky_bwd = mrays(t_bwd)
     metric = ("Mrays/s fwd+bwd scene_2 %dx%d + %d^2 synthetic checker skybox (bwd_mode=%s;"
-              " sky lookup %s; steady-state training fwd+bwd %.6g; fwd-only %.6g; const-sky"
-              " fwd %.6g%s; env: dispatch %.4g ms/call, item %.4g ms; %s)"
-              % (width, height, sky_size, bwd_mode,
-                 "sparse" if config.sky_sparse_gather else "full gather", mrays(t_bwd_ss),
-                 mrays(t_fwd), mrays(t_const), roof, fp["dispatch_ms_per_call"], fp["item_ms"],
-                 where))
+              " fwd-only %.6g; const-sky fwd %.6g%s; env: dispatch %.4g ms/call, item %.4g"
+              " ms; %s)"
+              % (width, height, sky_size, bwd_mode, mrays(t_fwd), mrays(t_const), roof,
+                 fp["dispatch_ms_per_call"], fp["item_ms"], where))
     out["line"] = {"metric": metric, "value": sky_bwd, "unit": "Mrays/s",
                    "vs_baseline": sky_bwd / REF_CPU_MRAYS_32T}
     return out

@@ -2,7 +2,9 @@
 
 Counterpart of ``ray_tracing_tpu/config.py``: the same fields with the same
 defaults, so a configuration written for one package reads the same in the
-other. The reference renderer hard-codes every physics constant (10 bounces,
+other, but for the two fields of the JAX package's sparse sky lookup, which
+the port does not have: it looks the sky up in full every sample. The
+reference renderer hard-codes every physics constant (10 bounces,
 3 shadow samples with spread 0.5, light weight 0.05, hit offset 1e-3, fov 30
 passed to ``tan`` in degrees); this dataclass exposes them.
 
@@ -66,18 +68,6 @@ class RenderConfig:
     # visibility (render/integrator.py::soft_silhouette_composite), which
     # gives the geometry a gradient across silhouettes. 0 = hard edges.
     soft_silhouette_temp: float = 0.0
-
-    # The sparse sky lookup (kernels/megakernel.py::render_frame): on, a
-    # render of a packed cubemap with nearest texels gathers only the
-    # texels its sky cache lacks when it takes more than one sample or is
-    # handed a cache; the budget is the share of a frame's 128-pixel blocks
-    # that the larger compacted tier gathers (ops/cubemap.py::
-    # sparse_sky_lookup). Off by default, unlike the JAX package: choosing
-    # the tier reads a count on the host every sample, which stalls the
-    # launch queue, and on the H100 that costs more than the full gather it
-    # avoids (PERF.md, phase sky_gather of chip_smoke.py).
-    sky_sparse_gather: bool = False
-    sky_sparse_budget_frac: float = 0.125
 
     # Where the progressive pyramid starts (render/film.py::
     # progressive_scales; the reference's --init-scale).

@@ -25,11 +25,7 @@ import torch
 from ray_tracing_tpu_torch.config import RenderConfig, DEFAULT_CONFIG
 from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.diff.checkpoint import restore_checkpoint, save_checkpoint
-from ray_tracing_tpu_torch.kernels.megakernel import (
-    _wrap_i32,
-    render_image_cuda,
-    sky_cache_capable,
-)
+from ray_tracing_tpu_torch.kernels.megakernel import _wrap_i32, render_image_cuda
 from ray_tracing_tpu_torch.ops.cubemap import CubemapData
 from ray_tracing_tpu_torch.parallel.distributed import is_coordinator
 from ray_tracing_tpu_torch.parallel.mesh import (
@@ -49,10 +45,6 @@ SCENE_PARAM_FIELDS = (
     "emission_power", "emission_color",
 )
 CAMERA_PARAM_FIELDS = ("pos", "front", "up")
-
-# fit reseeds the train step's sky caches every this many steps: the cache's
-# premise (the sky texels of the frame) decays as the parameters move.
-RESEED_EVERY = 32
 
 
 def extract_params(scene: Scene, fields) -> dict:
@@ -124,7 +116,7 @@ def make_train_step(base_scene: Scene, camera: Camera,
                     optimizer: torch.optim.Optimizer, width: int, height: int,
                     spp: int = 4, config: RenderConfig = DEFAULT_CONFIG,
                     cubemap: CubemapData | None = None, device=None,
-                    mesh: Mesh | None = None, sky_cache_mode: bool = False):
+                    mesh: Mesh | None = None):
     """Build the train step over `mesh` (None: one device, `device`).
 
     Returns step(params, target, seed) -> loss, a 0-dim tensor. `params` is
@@ -147,11 +139,6 @@ def make_train_step(base_scene: Scene, camera: Camera,
     inside it, "step.params", "step.forward", "step.loss", "step.backward",
     "step.reduce" (across processes only) and "step.optimizer"
     (utils/profiling.py::span).
-
-    sky_cache_mode=True makes it step(params, target, seed, sky_cache) ->
-    (loss, sky_cache), sky_cache a dict {(tile, sample): cache} of this
-    process's cells, threaded across steps (None seeds every cell afresh).
-    Exact for any cache state (render_image_cuda).
 
     When emission_power or emission_color are trained, the static
     `emissive` metadata is dropped here, so that the shadow trace takes the
@@ -181,7 +168,7 @@ def make_train_step(base_scene: Scene, camera: Camera,
     base_scene = base_scene.to(device)
     camera = camera.to(device)
 
-    def step(params: dict, target, seed: int, sky_cache=None):
+    def step(params: dict, target, seed: int):
         with span("train_step"):
             with span("step.params"):
                 base = base_scene
@@ -191,8 +178,8 @@ def make_train_step(base_scene: Scene, camera: Camera,
                 cam = dataclasses.replace(camera, **params["camera"])
                 optimizer.zero_grad(set_to_none=True)
             with span("step.forward"):
-                images, caches = render_tiles_sharded(scene, cam, width, height, seed, mesh,
-                                                      spp, config, cubemap, sky_cache)
+                images = render_tiles_sharded(scene, cam, width, height, seed, mesh, spp,
+                                              config, cubemap)
             with span("step.loss"):
                 sse = {t: torch.sum((img - target[t * local_h:(t + 1) * local_h]
                                      .to(img.device)) ** 2).to(device)
@@ -207,7 +194,7 @@ def make_train_step(base_scene: Scene, camera: Camera,
                     _reduce_over_processes(loss, optimizer)
             with span("step.optimizer"):
                 optimizer.step()
-        return (loss, caches) if sky_cache_mode else loss
+        return loss
 
     return step
 
@@ -240,13 +227,8 @@ def fit(base_scene: Scene, camera: Camera, target, scene_fields=("p0",),
     and after the last one, by the coordinating process (diff/checkpoint.py);
     a later call resumes from the latest checkpoint there, at step_seed(seed,
     step), so on the CPU a resumed run equals an uninterrupted one bit for
-    bit. A checkpoint written for other fields raises.
-
-    Where the sky can keep a cache (kernels/megakernel.py::
-    sky_cache_capable), the step threads each cell's sky cache and fit
-    reseeds it every RESEED_EVERY steps; on this package the cache is served
-    by the full gather unless config.sky_sparse_gather is on. device=None
-    means the card, or the device of this process's first cell of `mesh`."""
+    bit. A checkpoint written for other fields raises. device=None means the
+    card, or the device of this process's first cell of `mesh`."""
     if device is None and mesh is not None:
         device = mesh.local_cells()[0][2].device
     device = resolve_device(device)
@@ -301,10 +283,8 @@ def fit(base_scene: Scene, camera: Camera, target, scene_fields=("p0",),
             start = int(state["step"])
             losses = [float(x) for x in state["losses"]]
 
-    sky_cache_mode = cubemap is not None and sky_cache_capable(config, cubemap)
     step = make_train_step(base_scene, camera, optimizer, width, height, spp=spp,
-                           config=config, cubemap=cubemap, device=device, mesh=mesh,
-                           sky_cache_mode=sky_cache_mode)
+                           config=config, cubemap=cubemap, device=device, mesh=mesh)
 
     pending = []
 
@@ -313,14 +293,8 @@ def fit(base_scene: Scene, camera: Camera, target, scene_fields=("p0",),
             losses.extend(torch.stack(pending).tolist())
             pending.clear()
 
-    sky_cache = None
     for i in range(start, steps):
-        if sky_cache_mode:
-            if (i - start) % RESEED_EVERY == 0:
-                sky_cache = None
-            loss, sky_cache = step(params, target, step_seed(seed, i), sky_cache)
-        else:
-            loss = step(params, target, step_seed(seed, i))
+        loss = step(params, target, step_seed(seed, i))
         pending.append(loss)
         if callback is not None:
             drain()

@@ -4,8 +4,8 @@
 // by `run`), a probe of how fast a lookup into a small table can go when the
 // table sits in fast memory: on the TPU a 256 KB int32 table was kept whole
 // in VMEM and 2M indices were gathered from it. The same question stands
-// behind the sparse sky cache (ops/cubemap.py::sparse_sky_lookup): is a
-// texel gather dear enough to be worth avoiding?
+// behind the JAX package's sparse sky lookup: is a texel gather dear enough
+// to be worth avoiding?
 //
 // What bounds it on this card: bytes. Each index is read once and each
 // result written once (8 bytes per index, 16.8 MB at 2M indices), the table

@@ -16,10 +16,7 @@
 // remaps and truncates to the nearest texel, fetches it, and composes
 // rgb = min(max(r + (sky * c) * miss, 0), 1), which it adds into the frame's
 // running sum (total_out = total_in + rgb; total_out = rgb for the first
-// sample; the two may be one buffer). Sample 0 of a frame that keeps a sky
-// cache also writes the cache (the flat texel index, the texel where the
-// path missed and 0 elsewhere, the miss flag) and composes with that texel,
-// as the plain path's gather_texels does. Under grad it writes the sample's
+// sample; the two may be one buffer). Under grad it writes the sample's
 // saved state instead of keeping the planes: an int32 word a pixel (bits
 // 0-23 the texel of a packed sky or the face of a 1x1 float sky; bits 24-29
 // each channel's clip weight code, 2 where the clip passes the cotangent, 1
@@ -359,8 +356,7 @@ __device__ __forceinline__ void lerp_adjoint(const Sky& sky, float dx, float dy,
 
 __global__ void __launch_bounds__(THREADS)
 sky_compose_kernel(const float* __restrict__ planes, const float* total_in, float* total_out,
-                   Sky sky, int n, int* __restrict__ state, int* __restrict__ cache_flat,
-                   int* __restrict__ cache_packed, unsigned char* __restrict__ cache_miss) {
+                   Sky sky, int n, int* __restrict__ state) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const size_t N = (size_t)n;
@@ -370,15 +366,7 @@ sky_compose_kernel(const float* __restrict__ planes, const float* total_in, floa
     float s[3];
     int word;
     if (sky.packed != nullptr) {
-        int tex = __ldg(sky.packed + k);
-        if (cache_flat != nullptr) {
-            // sample 0 of a cached frame: the cache's texel, 0 where the
-            // path did not miss (gather_texels)
-            tex = miss ? tex : 0;
-            cache_flat[i] = k;
-            cache_packed[i] = tex;
-            cache_miss[i] = miss ? 1 : 0;
-        }
+        const int tex = __ldg(sky.packed + k);
         unpack(tex, s);
         word = tex;
     } else {
@@ -926,18 +914,16 @@ int soft_smem(Kernel kernel, size_t smem) {
 }  // namespace
 
 // Launches the forward kernel over one sample of n = H*W pixels on `stream`:
-// the bilinear arm where `bilinear` is not 0 (a sky larger than 1x1, no
-// cache), else the nearest texel. planes: (10,H,W) float32; total_in: (H,W,3)
+// the bilinear arm where `bilinear` is not 0 (a sky larger than 1x1), else
+// the nearest texel. planes: (10,H,W) float32; total_in: (H,W,3)
 // float32 or null (the first sample); total_out: (H,W,3) float32, may be
 // total_in; the sky: packed (6*sky_h*sky_w,) int32, or r, g, b float32 planes
 // (the other null); state: (4, 5 or, bilinear, 7,H,W) int32 or null (no
-// grad); cache_flat, cache_packed (H,W) int32 and cache_miss (H,W) bool, all
-// three or none. Device pointers. Returns the cudaError_t of the launch (0 =
+// grad). Device pointers. Returns the cudaError_t of the launch (0 =
 // launched).
 extern "C" int rt_sky_compose(const float* planes, const float* total_in, float* total_out,
                               const int* packed, const float* r, const float* g, const float* b,
                               int sky_h, int sky_w, int n, int bilinear, int* state,
-                              int* cache_flat, int* cache_packed, unsigned char* cache_miss,
                               void* stream) {
     if (n <= 0) return 0;
     const Sky sky{packed, r, g, b, sky_h, sky_w};
@@ -947,7 +933,7 @@ extern "C" int rt_sky_compose(const float* planes, const float* total_in, float*
             planes, total_in, total_out, sky, n, state);
     } else {
         sky_compose_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            planes, total_in, total_out, sky, n, state, cache_flat, cache_packed, cache_miss);
+            planes, total_in, total_out, sky, n, state);
     }
     return (int)cudaGetLastError();
 }

@@ -106,15 +106,12 @@ from ray_tracing_tpu_torch.config import RenderConfig, DEFAULT_CONFIG
 from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.kernels import build
 from ray_tracing_tpu_torch.ops.cubemap import (
-    SPARSE_BLOCK,
     CubemapData,
     bilinear_adjoint,
     bilinear_terms,
     constant_sky,
     face_uv,
-    gather_texels,
     sample_cubemap,
-    sparse_sky_lookup,
     texel_flat_index,
     unpack_texels,
 )
@@ -1152,12 +1149,12 @@ def _sky_requires_grad(cubemap: CubemapData) -> bool:
     return any(t is not None and t.requires_grad for t in (cubemap.r, cubemap.g, cubemap.b))
 
 
-def fused_sky_compose(config: RenderConfig, cubemap: CubemapData) -> bool:
+def fused_sky_compose(cubemap: CubemapData) -> bool:
     """Whether render_frame composes each sample through sky_compose: either
-    filter, with the sparse lookup off, of a sky that no gradient asks for.
-    The sparse lookup and a float sky whose planes require grad (sky_compose
-    takes the sky as a constant) keep sky_lookup and compose_sky."""
-    return not config.sky_sparse_gather and not _sky_requires_grad(cubemap)
+    filter, of a sky that no gradient asks for. A float sky whose planes
+    require grad (sky_compose takes the sky as a constant) keeps sky_lookup
+    and compose_sky."""
+    return not _sky_requires_grad(cubemap)
 
 
 def _bilinear_arm(bilinear: bool, cubemap: CubemapData) -> bool:
@@ -1183,22 +1180,17 @@ def _clip_code(x):
     return torch.where((x < 0) | (x > 1), 0, out).to(torch.int32)
 
 
-def sky_compose_plain(planes, total, cubemap: CubemapData, cache: bool = False,
-                      keep_state: bool = False, bilinear: bool = False):
+def sky_compose_plain(planes, total, cubemap: CubemapData, keep_state: bool = False,
+                      bilinear: bool = False):
     """The plain PyTorch version of the forward CUDA kernel: one sample's
     sky lookup (the nearest texel, or with `bilinear` the bilinear filter),
     compose_sky, and the running sum. `planes` (10,H,W) from tile_physics
     (the miss plane holds 0 or 1), `total` the (H,W,3) running sum or None
-    for the first sample. Returns (total + rgb, state, cache): `state` the
+    for the first sample. Returns (total + rgb, state): `state` the
     (sky_state_planes,H,W) int32 planes the adjoint reads (with keep_state,
-    else None); with `cache` (sample 0 of a frame that keeps a sky cache: a
-    packed sky larger than 1x1, nearest texels) the cache (flat texel index,
-    texel where the path missed and 0 elsewhere, miss flag) and a compose
-    with that texel, as gather_texels gives it, else None. Bit for bit what
-    sample_cubemap and compose_sky compute."""
+    else None). Bit for bit what sample_cubemap and compose_sky compute."""
     d = Vec3(planes[3], planes[4], planes[5])
     miss = planes[9]
-    cached = None
     if _bilinear_arm(bilinear, cubemap):
         sky = bilinear_terms(cubemap, d)[0]
         low = torch.zeros(miss.shape, dtype=torch.int32, device=miss.device)
@@ -1210,10 +1202,6 @@ def sky_compose_plain(planes, total, cubemap: CubemapData, cache: bool = False,
             k = texel_flat_index(cubemap, d)
         if cubemap.packed is not None:
             low = cubemap.packed[k.long()]
-            if cache:
-                miss0 = miss > 0.5
-                low = torch.where(miss0, low, 0)
-                cached = (k, low, miss0)
             sky = unpack_texels(low)
         else:
             kl = k.long()
@@ -1230,7 +1218,7 @@ def sky_compose_plain(planes, total, cubemap: CubemapData, cache: bool = False,
         for ch, xc in enumerate((x.x, x.y, x.z)):
             word = word | (_clip_code(xc) << (SKY_CLIP_SHIFT + 2 * ch))
         state = torch.stack([word, *(p.view(torch.int32) for p in planes[6:9]), *rest])
-    return out, state, cached
+    return out, state
 
 
 def _state_sky(state, cubemap: CubemapData, bilinear: bool = False) -> Vec3:
@@ -1295,7 +1283,7 @@ def _sky_pointers(cubemap: CubemapData, dev):
             cubemap.h, cubemap.w)
 
 
-def _launch_sky_compose(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool,
+def _launch_sky_compose(planes, total, cubemap: CubemapData, keep_state: bool,
                         bilinear: bool = False):
     """Launch the forward CUDA kernel on PyTorch's current stream: the
     arguments and results of sky_compose_plain. Without keep_state the sum
@@ -1307,28 +1295,20 @@ def _launch_sky_compose(planes, total, cubemap: CubemapData, cache: bool, keep_s
     if total is not None:
         _check_tensor("running sum", total, (*frame, 3), torch.float32, dev)
     arm = _bilinear_arm(bilinear, cubemap)
-    if cache and (cubemap.packed is None or cubemap.h * cubemap.w == 1 or arm):
-        raise ValueError("a sky cache needs a packed sky larger than 1x1 at the nearest texel")
     sky = _sky_pointers(cubemap, dev)
     lib, fn = _load(SKY_COMPOSE_LIBRARY, "rt_sky_compose",
-                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(dev):
         out = total if total is not None and not keep_state else torch.empty(
             (*frame, 3), dtype=torch.float32, device=dev)
         state = (torch.empty((sky_state_planes(cubemap, bilinear), *frame), dtype=torch.int32,
                              device=dev) if keep_state else None)
-        cached = None
-        if cache:
-            cached = (torch.empty(frame, dtype=torch.int32, device=dev),
-                      torch.empty(frame, dtype=torch.int32, device=dev),
-                      torch.empty(frame, dtype=torch.bool, device=dev))
         err = fn(planes.data_ptr(), None if total is None else total.data_ptr(), out.data_ptr(),
                  *sky, planes[0].numel(), int(arm), None if state is None else state.data_ptr(),
-                 *((t.data_ptr() for t in cached) if cache else (None, None, None)),
                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "sky_compose")
     launch_counts["sky_compose_bilinear" if arm else "sky_compose"] += 1
-    return out, state, cached
+    return out, state
 
 
 def _launch_sky_compose_adjoint(g_total, state, cubemap: CubemapData, bilinear: bool = False):
@@ -1355,18 +1335,18 @@ def _launch_sky_compose_adjoint(g_total, state, cubemap: CubemapData, bilinear: 
     return g_planes
 
 
-def _sky_compose_forward(planes, total, cubemap: CubemapData, cache: bool, keep_state: bool,
+def _sky_compose_forward(planes, total, cubemap: CubemapData, keep_state: bool,
                          bilinear: bool):
     """The forward CUDA kernel for planes on the card, its plain version for
     planes on the CPU. Nothing else decides between them."""
     if planes.device.type == "cuda":
-        return _launch_sky_compose(planes, total, cubemap, cache, keep_state, bilinear)
+        return _launch_sky_compose(planes, total, cubemap, keep_state, bilinear)
     if planes.device.type != "cpu":
         raise ValueError(f"unsupported device {planes.device}")
-    out, state, cached = sky_compose_plain(planes, total, cubemap, cache, keep_state, bilinear)
+    out, state = sky_compose_plain(planes, total, cubemap, keep_state, bilinear)
     if total is not None and not keep_state:
         out = total.copy_(out)
-    return out, state, cached
+    return out, state
 
 
 class SkyComposeFunction(torch.autograd.Function):
@@ -1376,57 +1356,42 @@ class SkyComposeFunction(torch.autograd.Function):
 
     forward: the forward kernel (sky_compose_plain on the CPU), keeping the
     sample's compact state (sky_state_planes planes a pixel) and no view of
-    the planes; with `cache` it also returns the sky cache, not
-    differentiable. backward: the adjoint kernel (sky_compose_adjoint_plain
+    the planes. backward: the adjoint kernel (sky_compose_adjoint_plain
     on the CPU) writes the planes' cotangent, with `bilinear` the miss
     direction's too; the running sum's passes through."""
 
     @staticmethod
-    def forward(ctx, planes, total, cubemap, cache, bilinear):
-        out, state, cached = _sky_compose_forward(
-            planes.detach(), None if total is None else total.detach(), cubemap, cache,
+    def forward(ctx, planes, total, cubemap, bilinear):
+        out, state = _sky_compose_forward(
+            planes.detach(), None if total is None else total.detach(), cubemap,
             keep_state=True, bilinear=bilinear)
         ctx.save_for_backward(state)
         ctx.cubemap, ctx.bilinear = cubemap, bilinear
         ctx.chained = total is not None
-        if not cache:
-            return out
-        ctx.mark_non_differentiable(*cached)
-        return (out, *cached)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g_total, *_):
+    def backward(ctx, g_total):
         (state,) = ctx.saved_tensors
         with span("kernel.sky_compose_adjoint"):
             if state.device.type == "cuda":
                 g_planes = _launch_sky_compose_adjoint(g_total, state, ctx.cubemap, ctx.bilinear)
             else:
                 g_planes = sky_compose_adjoint_plain(g_total, state, ctx.cubemap, ctx.bilinear)
-        return g_planes, (g_total if ctx.chained else None), None, None, None
+        return g_planes, (g_total if ctx.chained else None), None, None
 
 
-def sky_compose(planes, total, cubemap: CubemapData, cache: bool = False,
-                bilinear: bool = False):
-    """(total + rgb, sky cache or None): one sample's sky lookup (nearest
-    texel, or with `bilinear` the bilinear filter), compose_sky and running
-    sum (sky_compose_plain says what each argument is). Through
+def sky_compose(planes, total, cubemap: CubemapData, bilinear: bool = False):
+    """total + rgb: one sample's sky lookup (nearest texel, or with
+    `bilinear` the bilinear filter), compose_sky and running sum
+    (sky_compose_plain says what each argument is). Through
     SkyComposeFunction where the planes or the sum require grad; otherwise
     the forward alone, adding into `total` in place."""
     if torch.is_grad_enabled() and (planes.requires_grad
                                     or (total is not None and total.requires_grad)):
-        outs = SkyComposeFunction.apply(planes, total, cubemap, cache, bilinear)
-        return (outs[0], outs[1:]) if cache else (outs, None)
-    out, _, cached = _sky_compose_forward(planes, total, cubemap, cache, keep_state=False,
-                                          bilinear=bilinear)
-    return out, cached
-
-
-def sky_cache_capable(config: RenderConfig, cubemap: CubemapData) -> bool:
-    """Whether a render can keep a sky cache: the nearest-texel lookup of a
-    packed cubemap larger than 1x1."""
-    return (config.env_filter == "nearest" and cubemap.packed is not None
-            and cubemap.h * cubemap.w > 1)
+        return SkyComposeFunction.apply(planes, total, cubemap, bilinear)
+    return _sky_compose_forward(planes, total, cubemap, keep_state=False, bilinear=bilinear)[0]
 
 
 def _miss_texel_index(cubemap: CubemapData, planes):
@@ -1941,98 +1906,49 @@ def frame_sample_seeds(seed: int, spp: int, first_sample: int = 0,
 
 
 def render_frame(job: TileJob, tiles_fn, seed: int, spp: int,
-                 cubemap: CubemapData, row0: int = 0, sky_cached: bool = False,
-                 sky_cache=None, first_sample: int = 0, frame_spp: int | None = None,
-                 plain_sky: bool = False):
-    """((H, W, 3) image, sky cache): `spp` samples through `tiles_fn`, each
-    composed with its sky and clipped BEFORE the average; the samples are
-    first_sample .. of a frame of `frame_spp` (frame_sample_seeds). With
+                 cubemap: CubemapData, row0: int = 0, first_sample: int = 0,
+                 frame_spp: int | None = None, plain_sky: bool = False):
+    """(H, W, 3) image: `spp` samples through `tiles_fn`, each composed with
+    its sky and clipped BEFORE the average; the samples are first_sample ..
+    of a frame of `frame_spp` (frame_sample_seeds). With
     soft_silhouette_temp > 0 the average is then blended with the soft
     primary visibility; the blend is affine in the colour and the same for
     every sample, so blending the average equals averaging the blended
     samples.
 
-    `sky_cached` keeps a sky cache (flat, packed, miss) where
-    sky_cache_capable holds and spp > 1 or a cache is given, as the JAX
-    package's render_image_pallas does: sample 0's miss texels become the
-    cache, or a threaded `sky_cache` of an earlier call of the same frame
-    shape is taken as it is. With config.sky_sparse_gather off every sample
-    gathers its texels in full (no host read). With it on, sample 0 gathers
-    block-compacted and every other sample only the pixels whose texel index
-    differs from the cache's (sparse_sky_lookup: one host read per sample).
-    Either way the image is the full lookup's bit for bit: reuse is keyed on
-    equal texel indices. The cache returned is None where none was kept; a
-    threaded cache comes back as it was given.
-
-    Where fused_sky_compose holds and `plain_sky` is off, each sample's sky
-    lookup, compose and running sum are one sky_compose in a span "compose"
-    that counts the `texels` gathered (one a pixel; four for the bilinear
-    filter on a sky larger than 1x1). The caller picks the
-    sky step as it picks `tiles_fn`: the plain reference render_image
-    passes plain_sky=True, so that its frame holds the kernel to the plain
-    lookup on any device. Otherwise each sample opens a span
-    "sky_lookup" (texel index, gather and unpack; `texels` counts the texels
-    gathered: every pixel's in a full gather, the fresh blocks' in a sparse
-    one) and a span "compose" (compose_sky and the running sum). The frame
-    ends in a span "average"."""
+    Each sample takes one of two sky steps. Where fused_sky_compose holds
+    and `plain_sky` is off, its sky lookup, compose and running sum are one
+    sky_compose in a span "compose" that counts the `texels` gathered (one
+    a pixel; four for the bilinear filter on a sky larger than 1x1).
+    Otherwise it opens a span "sky_lookup" (sky_lookup, which counts its
+    `texels` alike) and a span "compose" (compose_sky and the running sum).
+    The caller picks the sky step as it picks `tiles_fn`: the plain
+    reference render_image passes plain_sky=True, so that its frame holds
+    the kernel to the plain lookup on any device. The frame ends in a span
+    "average"."""
     if spp < 1:
         raise ValueError("spp must be at least 1")
     cfg = job.config
-    seeds = frame_sample_seeds(seed, spp, first_sample, frame_spp)
-    use_cache = (sky_cached and sky_cache_capable(cfg, cubemap)
-                 and (spp > 1 or sky_cache is not None))
-    fused = not plain_sky and fused_sky_compose(cfg, cubemap)
+    fused = not plain_sky and fused_sky_compose(cubemap)
     bilinear = cfg.env_filter == "bilinear"
-    sparse = use_cache and cfg.sky_sparse_gather
     pixels = job.height * job.width
-    # the sparse lookup counts its texels itself (ops/cubemap.py)
-    gathered = {} if sparse else {"texels": pixels}
-    total, cache = None, None
-    if use_cache:
-        budget = max(int(pixels * cfg.sky_sparse_budget_frac) // SPARSE_BLOCK, 256)
-        if sky_cache is None:
-            planes, _ = tiles_fn(job, seeds[0], row0)
-            if fused:
-                with span("compose", texels=pixels):
-                    total, (flat0, packed0, miss0) = sky_compose(planes, None, cubemap,
-                                                                 cache=True)
-            else:
-                with span("sky_lookup", **gathered):
-                    flat0, miss0 = _miss_texel_index(cubemap, planes)
-                    packed0 = (sparse_sky_lookup(cubemap, flat0, miss0, budget=budget) if sparse
-                               else gather_texels(cubemap, flat0, miss0))
-                    sky = unpack_texels(packed0)
-                with span("compose"):
-                    total = compose_sky(planes, sky)
-            seeds = seeds[1:]
-        else:
-            flat0, packed0, miss0 = sky_cache
-            if tuple(flat0.shape) != (job.height, job.width):
-                raise ValueError(f"a sky cache of shape {tuple(flat0.shape)} for a "
-                                 f"{job.height}x{job.width} frame")
-        cache = (flat0, packed0, miss0)
-    for s in seeds:
+    total = None
+    for s in frame_sample_seeds(seed, spp, first_sample, frame_spp):
         planes, _ = tiles_fn(job, s, row0)
         if fused:
             with span("compose", texels=pixels * (4 if _bilinear_arm(bilinear, cubemap) else 1)):
-                total, _ = sky_compose(planes, total, cubemap, bilinear=bilinear)
-            continue
-        if sparse:
-            with span("sky_lookup"):
-                flat, miss = _miss_texel_index(cubemap, planes)
-                sky = unpack_texels(sparse_sky_lookup(cubemap, flat, miss, flat0, packed0,
-                                                      miss0, budget))
+                total = sky_compose(planes, total, cubemap, bilinear=bilinear)
         else:
             sky = sky_lookup(planes, cubemap, cfg, pixels)
-        with span("compose"):
-            rgb = compose_sky(planes, sky)
-            total = rgb if total is None else total + rgb
+            with span("compose"):
+                rgb = compose_sky(planes, sky)
+                total = rgb if total is None else total + rgb
     with span("average"):
         if spp > 1:
             total = total * (1.0 / spp)
         if cfg.soft_silhouette_temp > 0:
             total = _soft_silhouettes(job, total, cubemap, row0, plain=plain_sky)
-        return (total.to_array() if isinstance(total, Vec3) else total), cache
+        return total.to_array() if isinstance(total, Vec3) else total
 
 
 def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
@@ -2040,13 +1956,12 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
                       config: RenderConfig = DEFAULT_CONFIG,
                       cubemap: CubemapData | None = None, row0: int = 0,
                       norm_height: int | None = None,
-                      aspect: float | None = None, sky_cache=None,
-                      return_sky_cache: bool = False, first_sample: int = 0,
+                      aspect: float | None = None, first_sample: int = 0,
                       frame_spp: int | None = None, device=None):
     """Full render through the CUDA megakernel and, per sample, the sky
     compose kernel (sky_compose, at the nearest texel or bilinear; the plain
-    lookup for the sparse lookup or a sky that requires grad): (height,
-    width, 3) float32 in [0, 1] on the device.
+    lookup for a sky that requires grad): (height, width, 3) float32 in
+    [0, 1] on the device.
 
     Takes the statistics of render_image (render/integrator.py) and the
     very same random numbers. Differentiable end to end: when a leaf of
@@ -2056,18 +1971,8 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     row0/norm_height/aspect as in render_tiles_cuda. first_sample and
     frame_spp make the `spp` samples a share of a larger frame's
     (frame_sample_seeds): parallel/render.py hands each mesh cell its own.
-
-    sky_cache / return_sky_cache thread the sky cache across calls
-    (render_frame): with return_sky_cache=True the result is (img, cache).
-    With config.sky_sparse_gather on, that cache fed to the next call of the
-    same frame shape makes every sample of it sparse; off (the default),
-    every sample gathers its texels in full and the cache is only passed
-    through. Exact for any cache state (a stale cache from another camera
-    only lowers the hit rate), but only valid for the cubemap it was
-    gathered from. cache is None where no cache can be kept (constant or
-    bilinear sky, float cubemap, one sample without a cache). device=None
-    means the card and raises without one; device="cpu" runs the plain
-    versions."""
+    device=None means the card and raises without one; device="cpu" runs
+    the plain versions."""
     device = resolve_device(device)
     with span("render_image", pixels=width * height, samples=spp):
         with span("tile_job"):
@@ -2079,7 +1984,5 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
             job = make_tile_job(scene.to(device), camera.to(device), width, height,
                                 config, norm_height, aspect)
             cubemap = cubemap.to(device)
-        img, cache = render_frame(job, run_tiles_grad, seed, spp, cubemap, row0,
-                                  sky_cached=True, sky_cache=sky_cache,
-                                  first_sample=first_sample, frame_spp=frame_spp)
-    return (img, cache) if return_sky_cache else img
+        return render_frame(job, run_tiles_grad, seed, spp, cubemap, row0,
+                            first_sample=first_sample, frame_spp=frame_spp)

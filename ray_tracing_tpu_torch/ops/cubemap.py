@@ -11,12 +11,11 @@ is zero, which makes the arithmetic right shifts safe. Float cubemaps
 (procedural skies) keep three channel planes. 1x1 cubemaps (constant or
 per-face colours) are read with a 6-way select and no indexing.
 
-On the card the nearest lookup of a render runs inside the sky compose
-kernel (kernels/csrc/sky_compose.cu), which repeats face_uv and
-texel_flat_index; these functions are its plain reference and the lookup of
-the bilinear filter, run as PyTorch indexing on the miss directions the
-megakernel returns. ``sparse_sky_lookup`` is the exact lookup that gathers
-only the texels a cache of an earlier sample lacks.
+On the card the lookup of a render, under either filter, runs inside the
+sky compose kernels (kernels/csrc/sky_compose.cu), which repeat face_uv,
+texel_flat_index and the bilinear filter; these functions are their plain
+reference, run as PyTorch indexing on the miss directions the megakernel
+returns, and the lookup of a sky that requires grad.
 """
 
 from __future__ import annotations
@@ -28,7 +27,6 @@ import torch
 
 from ray_tracing_tpu_torch.device import resolve_device
 from ray_tracing_tpu_torch.ops.vec import Vec3
-from ray_tracing_tpu_torch.utils.profiling import add_counts
 
 # Face order of the reference renderer.
 CF_FRONT, CF_BACK, CF_LEFT, CF_RIGHT, CF_TOP, CF_BOTTOM = 0, 1, 2, 3, 4, 5
@@ -197,91 +195,6 @@ def texel_flat_index(cubemap: CubemapData, d: Vec3):
 def unpack_texels(packed) -> Vec3:
     """int32 0x00RRGGBB texels -> RGB Vec3 in [0, 1]."""
     return _unpack(packed)
-
-
-def gather_texels(cubemap: CubemapData, flat, need):
-    """Packed texels at the flat indices where `need`, 0 elsewhere: the full
-    gather of a packed cubemap."""
-    return torch.where(need, cubemap.packed[flat.long()], 0)
-
-
-SPARSE_BLOCK = 128  # pixels per block of the sparse lookup's compaction
-
-
-def sparse_sky_lookup(cubemap: CubemapData, flat, need, cache_flat=None,
-                      cache_packed=None, cache_valid=None, budget: int | None = None):
-    """EXACT nearest-texel lookup of the `need` pixels, gathering only the
-    texels that a cache does not already hold.
-
-    Counterpart of the JAX package's sparse_sky_lookup, with its contract:
-
-      reuse:  cache_valid & (flat == cache_flat) -> the cached texel. Equal
-              flat indices name the same texel, so reuse is exact by
-              construction.
-      fresh:  per SPARSE_BLOCK-pixel block an "any fresh pixel" flag; the
-              flagged blocks are compacted (an exclusive cumsum gives each
-              its slot, one scatter writes the block ids) and only their
-              pixels are gathered. Two budget tiers (budget // 4 and
-              `budget` blocks, default max(blocks // 8, 256)) cap the
-              compacted gather; past the larger tier, and for a size that
-              is not a multiple of SPARSE_BLOCK, every pixel is gathered.
-              The tier changes the cost, never a texel.
-
-    The tier is chosen from the number of fresh blocks, read on the host:
-    one synchronisation per call (the JAX package chooses with lax.cond on
-    the device). Returns an int32 texel plane of `flat`'s shape, 0 where
-    ~need. Only for packed (8-bit) cubemaps. While a profiler runs, the
-    texels gathered (the fresh blocks' pixels, or every pixel) are added to
-    the open span's count `texels` (utils/profiling.py::add_counts): the
-    sky cache's misses, at no extra read."""
-    if cubemap.packed is None:
-        raise ValueError("the sparse lookup needs a packed cubemap")
-    shape = flat.shape
-    size = flat.numel()
-    flat = flat.reshape(-1)
-    need = need.reshape(-1)
-    if cache_flat is None:
-        reuse = torch.zeros_like(need)
-        cached = torch.zeros((), dtype=torch.int32, device=flat.device)
-    else:
-        reuse = cache_valid.reshape(-1) & (flat == cache_flat.reshape(-1))
-        cached = cache_packed.reshape(-1)
-    fresh_need = need & ~reuse
-    if size % SPARSE_BLOCK:
-        add_counts(texels=size)
-        fresh = gather_texels(cubemap, flat, fresh_need)
-    else:
-        nb = size // SPARSE_BLOCK
-        fb = fresh_need.reshape(nb, SPARSE_BLOCK).any(dim=1)
-        if budget is None:
-            budget = max(nb // 8, 256)
-        tiers = sorted({max(min(budget // 4, nb), 1), max(min(budget, nb), 1)})
-        count = int(fb.sum())  # the one read on the host
-        bb = next((t for t in tiers if count <= t), None)
-        add_counts(texels=size if bb is None else count * SPARSE_BLOCK)
-        fresh = (gather_texels(cubemap, flat, fresh_need) if bb is None
-                 else _compacted_gather(cubemap, flat, fb, bb))
-    out = torch.where(need, torch.where(reuse, cached, fresh), 0)
-    return out.reshape(shape)
-
-
-def _compacted_gather(cubemap: CubemapData, flat, fb, bb: int):
-    """Texels of every pixel of the first `bb` flagged blocks of `fb`, 0
-    elsewhere, in a (size,) plane. Sync-free: blocks past the budget and the
-    padding slots land in one extra slot or block that is cut off."""
-    nb = fb.numel()
-    dev = flat.device
-    fbi = fb.to(torch.int64)
-    slot = torch.cumsum(fbi, 0) - fbi  # exclusive prefix: each block's slot
-    dest = torch.where(fb & (slot < bb), slot, bb)
-    pos_b = torch.full((bb + 1,), nb, dtype=torch.int64, device=dev)
-    pos_b.scatter_(0, dest, torch.arange(nb, dtype=torch.int64, device=dev))
-    lanes = torch.arange(SPARSE_BLOCK, dtype=torch.int64, device=dev)
-    pos = (pos_b[:bb, None] * SPARSE_BLOCK + lanes).reshape(-1)
-    tex = cubemap.packed[flat[pos.clamp(max=flat.numel() - 1)].long()]
-    out = torch.zeros(((nb + 1) * SPARSE_BLOCK,), dtype=torch.int32, device=dev)
-    out[pos] = tex
-    return out[:nb * SPARSE_BLOCK]
 
 
 def sample_cubemap(cubemap: CubemapData, d: Vec3, bilinear: bool = False) -> Vec3:

@@ -17,8 +17,7 @@ statistically.)
 
 The sample-axis sum: the cells of one process are added in a fixed order
 (sample index); a tile whose cells belong to several processes is then
-summed across them by ``SampleSum``, whose backward is the identity. The
-sky cache is per cell and is never summed.
+summed across them by ``SampleSum``, whose backward is the identity.
 """
 
 from __future__ import annotations
@@ -75,16 +74,15 @@ class SampleSum(torch.autograd.Function):
 
 def _local_tile_render(scene: Scene, camera: Camera, seed: int, width: int, height: int,
                        spp: int, config: RenderConfig, cubemap: CubemapData | None,
-                       mesh: Mesh, tile: int, sample: int, device, sky_cache=None):
-    """(image, sky cache) of cell (tile, sample): the mean over its local
-    samples of its row slice, (height / n_tiles, width, 3) on `device`."""
+                       mesh: Mesh, tile: int, sample: int, device):
+    """The image of cell (tile, sample): the mean over its local samples of
+    its row slice, (height / n_tiles, width, 3) on `device`."""
     local_h = height // mesh.shape[TILE_AXIS]
     local_spp = spp // mesh.shape[SAMPLE_AXIS]
     return render_image_cuda(
         scene, camera, width, local_h, seed, spp=local_spp, config=config, cubemap=cubemap,
         row0=tile * local_h, norm_height=height, aspect=width / height,
-        first_sample=sample * local_spp, frame_spp=spp, sky_cache=sky_cache,
-        return_sky_cache=True, device=device)
+        first_sample=sample * local_spp, frame_spp=spp, device=device)
 
 
 def check_shape(mesh: Mesh, height: int, spp: int) -> None:
@@ -102,25 +100,22 @@ def check_shape(mesh: Mesh, height: int, spp: int) -> None:
 
 def render_tiles_sharded(scene: Scene, camera: Camera, width: int, height: int, seed: int,
                          mesh: Mesh, spp: int = 1, config: RenderConfig = DEFAULT_CONFIG,
-                         cubemap: CubemapData | None = None, sky_cache=None):
-    """({tile: (height / n_tiles, width, 3) image}, {(tile, sample): sky
-    cache}) over the tiles and cells of this process. A tile's image is the
-    frame's mean over all its samples, on the device of its first local
-    cell, differentiable with respect to the scene's and camera's leaves.
-    `sky_cache` is such a dict of an earlier call of the same shape (None:
-    every cell seeds its own)."""
+                         cubemap: CubemapData | None = None):
+    """{tile: (height / n_tiles, width, 3) image} over the tiles and cells
+    of this process. A tile's image is the frame's mean over all its
+    samples, on the device of its first local cell, differentiable with
+    respect to the scene's and camera's leaves."""
     check_shape(mesh, height, spp)
     n_samples = mesh.shape[SAMPLE_AXIS]
     rank = current_rank()
-    images, caches = {}, {}
+    images = {}
     for t, row in enumerate(mesh.cells):
         total = None
         for s, cell in enumerate(row):
             if cell.rank != rank:
                 continue
-            img, caches[(t, s)] = _local_tile_render(
-                scene, camera, seed, width, height, spp, config, cubemap, mesh, t, s,
-                cell.device, None if sky_cache is None else sky_cache.get((t, s)))
+            img = _local_tile_render(scene, camera, seed, width, height, spp, config, cubemap,
+                                     mesh, t, s, cell.device)
             if n_samples > 1:
                 img = img * float(spp // n_samples)
             total = img if total is None else total + img.to(total.device)
@@ -129,30 +124,23 @@ def render_tiles_sharded(scene: Scene, camera: Camera, width: int, height: int, 
         if t in mesh.sample_groups:
             total = SampleSum.apply(total, mesh.sample_groups[t])
         images[t] = total * (1.0 / spp) if n_samples > 1 else total
-    return images, caches
+    return images
 
 
 def render_image_sharded(scene: Scene, camera: Camera, width: int, height: int, seed: int,
                          mesh: Mesh, spp: int = 1, config: RenderConfig = DEFAULT_CONFIG,
-                         cubemap: CubemapData | None = None, sky_cache=None,
-                         return_sky_cache: bool = False):
+                         cubemap: CubemapData | None = None):
     """The frame sharded over (tile, sample): (rows, width, 3), the rows of
     every tile with a cell in this process, in order, on the device of the
     first of them. In one process that is the whole (height, width, 3)
     frame. Requires height % n_tiles == 0 and spp % n_samples == 0 (pad
-    upstream).
-
-    sky_cache / return_sky_cache thread each cell's sky cache across calls
-    of the same shape (render_image_cuda's semantics, exact for any cache
-    state): with return_sky_cache=True the result is (img, caches), caches
-    a dict {(tile, sample): cache} of this process's cells."""
-    images, caches = render_tiles_sharded(scene, camera, width, height, seed, mesh, spp,
-                                          config, cubemap, sky_cache)
+    upstream)."""
+    images = render_tiles_sharded(scene, camera, width, height, seed, mesh, spp, config,
+                                  cubemap)
     tiles = sorted(images)
     if not tiles:
         raise ValueError(f"process {current_rank()} has no cell in the mesh")
     if tiles != list(range(tiles[0], tiles[-1] + 1)):
         raise ValueError(f"this process's tiles {tiles} are not contiguous")
     home = images[tiles[0]].device
-    img = torch.cat([images[t].to(home) for t in tiles], dim=0)
-    return (img, caches) if return_sky_cache else img
+    return torch.cat([images[t].to(home) for t in tiles], dim=0)

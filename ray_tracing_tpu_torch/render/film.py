@@ -149,25 +149,17 @@ def render_pass(scene: Scene, camera: Camera, film: Film, seed: int, scale: int 
 
 def render_pass_cuda(scene: Scene, camera: Camera, film: Film, seed: int, scale: int = 1,
                      config: RenderConfig = DEFAULT_CONFIG,
-                     cubemap: CubemapData | None = None, spp: int = 1, sky_cache=None,
-                     return_sky_cache: bool = False, device=None):
+                     cubemap: CubemapData | None = None, spp: int = 1, device=None):
     """render_pass through the CUDA megakernel (render_image_cuda, K1):
-    the same samples, one launch per sample.
-
-    sky_cache / return_sky_cache thread render_image_cuda's sky cache from
-    one pass into the next pass of the same scale (the viewer's full-res
-    passes): with return_sky_cache=True the result is (film, cache). Reset
-    the cache with the film on invalidation: it stays exact across camera
-    moves, but its hits die with them. device=None means the card, where
-    the film lies; on the CPU render_image_cuda runs its plain versions."""
+    the same samples, one launch per sample and one sky compose each.
+    device=None means the card, where the film lies; on the CPU
+    render_image_cuda runs its plain versions."""
     device = resolve_device(device)
     lw, lh = lowres_size(film.width, film.height, scale)
-    img, cache = render_image_cuda(
-        scene, camera, lw, lh, _render_seed(seed, spp), spp=spp, config=config,
-        cubemap=cubemap, aspect=film.width / film.height, sky_cache=sky_cache,
-        return_sky_cache=True, device=device)
-    out = _accumulate(film, img, scale, spp)
-    return (out, cache) if return_sky_cache else out
+    img = render_image_cuda(scene, camera, lw, lh, _render_seed(seed, spp), spp=spp,
+                            config=config, cubemap=cubemap, aspect=film.width / film.height,
+                            device=device)
+    return _accumulate(film, img, scale, spp)
 
 
 def progressive_scales(config: RenderConfig = DEFAULT_CONFIG) -> list[int]:

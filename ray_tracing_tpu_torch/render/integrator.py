@@ -8,7 +8,7 @@ random numbers and the frame's loop (``render_frame``), and differ in
 whether a sample's ten planes come from ``tile_physics`` in PyTorch or from
 the CUDA kernel, and in the sky step: ``render_image`` always takes the
 plain lookup and ``compose_sky``, where ``render_image_cuda`` takes the sky
-compose kernel for the nearest filter. This is the CPU path (``--device
+compose kernel for either filter. This is the CPU path (``--device
 cpu`` of the CLI) and what the kernels are held against. ``render_pixels`` is the reference's pixel()
 at arbitrary screen coordinates through the same estimator.
 
@@ -68,7 +68,7 @@ def render_image(scene: Scene, camera: Camera, width: int, height: int,
     job = make_tile_job(scene.to(device), camera.to(device), width, height,
                         config, norm_height, aspect)
     return render_frame(job, run_tiles_plain, seed, spp, cubemap.to(device), row0,
-                        plain_sky=True)[0]
+                        plain_sky=True)
 
 
 def render_pixels(scene: Scene, camera: Camera, u, v, aspect_ratio: float, seed: int = 0,

@@ -12,8 +12,8 @@ gather. Prints ``correct=...`` (kernel against ``torch.take``, integers,
 bit for bit), then each one's time and ns per index, ``torch.take``'s (it
 takes int64 indices only, so it reads 8 MB more), then the least time the
 card could take (bytes over the memory rate). It is module 8's question in
-small: the sky lookup is such a gather (ops/cubemap.py), and the sparse sky
-cache exists to avoid it.
+small: the sky lookup is such a gather (ops/cubemap.py), which the JAX
+package's sparse sky lookup avoids and the port does in full.
 
 ``gather`` is the kernel's wrapper: the CUDA kernel for tensors on the card,
 ``gather_plain`` (``torch.take``) for tensors on the CPU; nothing else

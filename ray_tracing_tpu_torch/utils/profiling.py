@@ -113,13 +113,6 @@ class SpanRecorder:
         with self._lock:
             self.dropped += 1
 
-    def add_counts(self, counts: dict) -> None:
-        stack = self.thread_stack()
-        row = stack[-1] if stack else None
-        if row is not None:
-            for k, v in counts.items():
-                row[5][k] = row[5].get(k, 0) + v
-
     def recorded(self) -> list:
         rows = list(self.rows)
         # a row names its parent's row: give its index (-1 for a row cleared)
@@ -176,13 +169,6 @@ def span(name: str, **counts):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(RECORDER, name, counts)
-
-
-def add_counts(**counts) -> None:
-    """Add `counts` to the innermost span open on this thread, while a
-    profiler runs: for counts the host learns inside the span."""
-    if _autograd_profiler._is_profiler_enabled:
-        RECORDER.add_counts(counts)
 
 
 def recorded() -> list:

@@ -114,7 +114,7 @@ def test_viewer_progressive_and_invalidation():
     assert float(v.film.weight) == 1 / 16 + 1 / 4 + 2 * FULL_RES_SPP
     pos_before = v.camera.pos.clone()
     assert v.handle_events([(EV_W, None)])
-    assert float(v.film.weight) == 0.0 and v.sky_cache is None
+    assert float(v.film.weight) == 0.0
     assert v.step(4) == 4
     assert not torch.allclose(v.camera.pos, pos_before)
     yaw = float(v.camera.yaw)
@@ -135,43 +135,42 @@ def test_viewer_counts_rays_at_each_pass_spp():
                     rays_per_frame(32, 24, FULL_RES_SPP, CFG)]
 
 
-def test_viewer_threads_sky_cache_through_render_fn():
-    """The cache a pass returns goes into the next pass; invalidation and
-    resize drop it with the film."""
+def test_viewer_hands_render_fn_each_pass_and_keeps_its_film():
+    """render_fn(scene, camera, film, seed, scale) -> (film, spp): each pass
+    gets the seed it was stepped with, the pyramid's scale and the film the
+    last pass returned; invalidation and resize restart the pyramid on a
+    fresh film of the frame's size."""
     seen = []
 
-    def render_fn(scene, camera, film, seed, scale, sky_cache=None):
-        seen.append(sky_cache)
+    def render_fn(scene, camera, film, seed, scale):
+        seen.append((seed, scale, float(film.weight), film.width))
         film = render_pass(scene, camera, film, seed, scale, CFG, sky(), device="cpu")
-        return film, ("cache", len(seen)), 1
+        return film, 1
 
     v = Viewer(sphere_scene(), Camera.default("cpu"), 32, 24, CFG, render_fn,
                out=io.StringIO())
-    v.step(0)
-    v.step(1)
-    assert seen == [None, ("cache", 1)] and v.sky_cache == ("cache", 2)
+    v.step(10)
+    v.step(11)
+    assert seen == [(10, 4, 0.0, 32), (11, 2, 1 / 16, 32)]
     v.invalidate()
-    assert v.sky_cache is None
-    v.step(2)
-    assert seen[-1] is None
+    v.step(12)
+    assert seen[-1] == (12, 4, 0.0, 32)
     v.resize(16, 8)
-    assert v.sky_cache is None
+    v.step(13)
+    assert seen[-1] == (13, 4, 0.0, 16) and v.film.width == 16
 
 
 def test_cuda_render_fn_pass_policy(monkeypatch):
-    """make_cuda_render_fn: pyramid passes take one sample and hand the
-    cache through; full-res passes take FULL_RES_SPP and seed, then thread,
-    the cache; the film's device is the render function's."""
+    """make_cuda_render_fn: pyramid passes take one sample, full-res passes
+    FULL_RES_SPP; the film's device is the render function's."""
     from ray_tracing_tpu_torch.render import film as film_mod
 
     calls = []
 
-    def fake(scene, camera, film, seed, scale, config, cubemap, spp=1, sky_cache=None,
-             return_sky_cache=False, device=None):
-        calls.append((scale, spp, sky_cache, return_sky_cache, str(device)))
-        out = render_pass(scene, camera, film, seed, scale, config, cubemap, spp=spp,
-                          device=device)
-        return (out, (sky_cache or 0) + 1) if return_sky_cache else out
+    def fake(scene, camera, film, seed, scale, config, cubemap, spp=1, device=None):
+        calls.append((scale, spp, str(device)))
+        return render_pass(scene, camera, film, seed, scale, config, cubemap, spp=spp,
+                           device=device)
 
     monkeypatch.setattr(film_mod, "render_pass_cuda", fake)
     cfg = RenderConfig(bounces=2, shadow_samples=1, init_scale=2)
@@ -179,11 +178,8 @@ def test_cuda_render_fn_pass_policy(monkeypatch):
                make_cuda_render_fn(cfg, sky(), "cpu"), out=io.StringIO())
     for n in range(3):
         v.step(n)
-    assert v.sky_cache == 2
-    assert calls == [(2, 1, None, False, "cpu"), (1, FULL_RES_SPP, None, True, "cpu"),
-                     (1, FULL_RES_SPP, 1, True, "cpu")]
-    v.invalidate()
-    assert v.sky_cache is None
+    assert calls == [(2, 1, "cpu"), (1, FULL_RES_SPP, "cpu"), (1, FULL_RES_SPP, "cpu")]
+    assert float(v.film.weight) == 1 / 4 + 2 * FULL_RES_SPP
 
 
 def test_viewer_resize():

@@ -37,9 +37,8 @@ def test_bench_line_on_the_cpu(result):
     assert set(line) == {"metric", "value", "unit", "vs_baseline"}
     json.dumps(line)
     m = line["metric"]
-    for part in ("bwd_mode=fetch", "steady-state training fwd+bwd", "fwd-only", "const-sky fwd",
-                 "env: dispatch", "synthetic checker skybox", "device cpu", "no peak",
-                 "sky lookup full gather"):
+    for part in ("bwd_mode=fetch", "fwd-only", "const-sky fwd", "env: dispatch",
+                 "synthetic checker skybox", "device cpu", "no peak"):
         assert part in m, part
     rays = 16 * 8 * 2 * (1 + 1)  # width x height x bounces x (1 + shadow samples)
     assert line["value"] == rays / result["seconds_per_sample"]["fwd_bwd"] / 1e6 > 0

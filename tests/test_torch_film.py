@@ -168,13 +168,13 @@ def test_samples_of_a_session_never_repeat(monkeypatch):
     monkeypatch.setattr(tmk, "run_tiles_grad", spy)
     cfg = RenderConfig(bounces=1, shadow_samples=0, init_scale=4)
     render_fn = make_cuda_render_fn(cfg, sky(), "cpu")
-    film, cache, total = Film.zero(8, 6, "cpu"), None, 0
+    film, total = Film.zero(8, 6, "cpu"), 0
     for n in range(14):
         if n == 7:
-            film, cache = Film.zero(8, 6, "cpu"), None  # invalidated mid-session
+            film = Film.zero(8, 6, "cpu")  # invalidated mid-session
         scale = progressive_scales(cfg)[min(n % 7, 2)]
-        film, cache, spp = render_fn(small_scene(), Camera.default("cpu"), film,
-                                     pass_seed(2**31 - 5, n), scale, cache)
+        film, spp = render_fn(small_scene(), Camera.default("cpu"), film,
+                              pass_seed(2**31 - 5, n), scale)
         total += spp
     assert len(seen) == total == 2 * (2 + 5 * 4)
     assert len(set(seen)) == len(seen)
@@ -189,22 +189,20 @@ def test_pass_seed_is_the_step_seed_mix():
 
 @pytest.mark.parametrize("text", [SCENE_2_TEXT, ROOM_TEXT], ids=["scene_2", "room"])
 def test_cuda_pass_equals_plain_pass_on_the_cpu(text):
-    """render_pass_cuda with the sky cache threaded through the full-res
-    passes equals render_pass bit for bit (on the CPU the wrapper runs the
-    kernel's plain version; `gpu` below runs K1)."""
+    """render_pass_cuda through the pyramid and a full-res pass equals
+    render_pass bit for bit (on the CPU the wrapper runs the kernel's plain
+    version; `gpu` below runs K1)."""
     from ray_tracing_tpu_torch.ops.cubemap import checker_sky
 
     scene, cam = parse_scene_string(text, device="cpu"), Camera.default("cpu")
     cfg, cm = RenderConfig(bounces=3, shadow_samples=2, init_scale=8), checker_sky(32, device="cpu")
-    plain, cuda, cache = Film.zero(40, 30, "cpu"), Film.zero(40, 30, "cpu"), None
+    plain, cuda = Film.zero(40, 30, "cpu"), Film.zero(40, 30, "cpu")
     for n, scale in enumerate(progressive_scales(cfg) + [1]):
         spp = 1 if scale != 1 else 2
         plain = render_pass(scene, cam, plain, pass_seed(3, n), scale, cfg, cm, spp=spp,
                             device="cpu")
-        cuda, cache = render_pass_cuda(scene, cam, cuda, pass_seed(3, n), scale, cfg, cm,
-                                       spp=spp, sky_cache=cache if scale == 1 else None,
-                                       return_sky_cache=True, device="cpu")
-    assert cache is not None
+        cuda = render_pass_cuda(scene, cam, cuda, pass_seed(3, n), scale, cfg, cm, spp=spp,
+                                device="cpu")
     assert cuda.resolve().equal(plain.resolve())
     assert float(cuda.weight) == float(plain.weight) == 1 / 64 + 1 / 16 + 1 / 4 + 4
 
@@ -298,11 +296,10 @@ def test_cuda_pass_equals_plain_pass_on_the_card(text, cuda_device):
     scene, cam = parse_scene_string(text, device=cuda_device), Camera.default(cuda_device)
     cfg, cm = RenderConfig(init_scale=8), checker_sky(256, device=cuda_device)
     render_fn = make_cuda_render_fn(cfg, cm, cuda_device)
-    cuda, plain, cache, total = (Film.zero(160, 120, cuda_device),
-                                 Film.zero(160, 120, cuda_device), None, 0)
+    cuda, plain, total = Film.zero(160, 120, cuda_device), Film.zero(160, 120, cuda_device), 0
     before = tmk.launch_counts["megakernel_fwd"]
     for n, scale in enumerate(progressive_scales(cfg) + [1, 1]):
-        cuda, cache, spp = render_fn(scene, cam, cuda, pass_seed(9, n), scale, cache)
+        cuda, spp = render_fn(scene, cam, cuda, pass_seed(9, n), scale)
         plain = render_pass(scene, cam, plain, pass_seed(9, n), scale, cfg, cm, spp=spp,
                             device=cuda_device)
         total += spp

@@ -138,32 +138,33 @@ def test_fit_checkpoint_of_other_fields_raises(tmp_path, resume_setup):
                     **common)
 
 
-def test_fit_threads_and_reseeds_the_sky_cache(monkeypatch):
-    """With a packed nearest-texel sky, fit runs the step in sky-cache mode:
-    the cells' caches are threaded from step to step and reseeded every
-    RESEED_EVERY steps (here 2)."""
-    monkeypatch.setattr(inverse, "RESEED_EVERY", 2)
-    given = []
+def test_fit_steps_once_a_step_at_the_step_seed(monkeypatch):
+    """With a packed nearest-texel sky over a mesh, fit builds one step and
+    calls it step(params, target, seed) once a step, at step_seed(seed, i),
+    and its losses are the step's."""
+    seeds, losses = [], []
     real = inverse.make_train_step
 
     def spy(*args, **kw):
-        assert kw["sky_cache_mode"]
         step = real(*args, **kw)
 
-        def wrapped(params, target, seed, sky_cache=None):
-            given.append(sky_cache)
-            return step(params, target, seed, sky_cache)
+        def wrapped(params, target, seed):
+            seeds.append(seed)
+            loss = step(params, target, seed)
+            losses.append(float(loss))
+            return loss
 
         return wrapped
 
     monkeypatch.setattr(inverse, "make_train_step", spy)
     scene = Scene.from_objects([ObjectSpec(kind="sphere", p0=(3.0, 3.0, 3.0), p1=(1.0,) * 3)],
                                device="cpu")
-    inverse.fit(scene, Camera.default("cpu"), torch.zeros(8, 16, 3), scene_fields=("albedo",),
-                steps=5, spp=2, config=RenderConfig(bounces=1, shadow_samples=0),
-                cubemap=checker_sky(8, device="cpu"), mesh=cpu_mesh(2, 1))
-    assert [g is None for g in given] == [True, False, True, False, True]
-    assert sorted(given[1]) == [(0, 0), (1, 0)]
+    _, _, got = inverse.fit(scene, Camera.default("cpu"), torch.zeros(8, 16, 3),
+                            scene_fields=("albedo",), steps=5, spp=2, seed=4,
+                            config=RenderConfig(bounces=1, shadow_samples=0),
+                            cubemap=checker_sky(8, device="cpu"), mesh=cpu_mesh(2, 1))
+    assert seeds == [inverse.step_seed(4, i) for i in range(5)]
+    assert got == losses
 
 
 def test_fit_multiscale_stages_equal_jax_area_downsample(monkeypatch):

@@ -11,6 +11,7 @@ used. On the CPU every cell runs the plain estimator; `gpu` runs K1-K3 on
 virtual cells of the card.
 """
 
+import dataclasses
 
 import numpy as np
 import pytest
@@ -257,32 +258,26 @@ def test_divisibility_errors():
         render_image_sharded(ts, Camera.default("cpu"), 32, 32, 0, mesh, spp=0, **kw)
 
 
-def test_sky_cache_step_equals_the_cache_free_step(lit):
-    """sky_cache_mode threads one cache per cell, {(tile, sample): cache},
-    and changes nothing: losses and updated leaves bit for bit, with the
-    cache seeded, threaded and reseeded."""
+def test_successive_sharded_steps_take_the_loss_of_their_frames(lit):
+    """Three Adam steps on a 2x2 mesh with the packed sky: each step's loss
+    is the squared error of render_image_sharded's frame at the leaves it
+    starts from (to the rounding of the order of the tiles' sums), and each
+    step moves the leaves."""
     ts, sky, cfg = lit
     mesh, target = cpu_mesh(2, 2), torch.full((H, W, 3), 0.4)
-
-    def run(mode):
-        a = ts.albedo.clone().requires_grad_()
-        step = inverse.make_train_step(ts, Camera.default("cpu"), torch.optim.Adam([a], lr=0.05),
-                                       W, H, spp=4, config=cfg, cubemap=sky, mesh=mesh,
-                                       sky_cache_mode=mode)
-        losses, cache = [], None
-        for i in range(3):
-            if not mode:
-                losses.append(step({"scene": {"albedo": a}, "camera": {}}, target, i))
-                continue
-            loss, cache = step({"scene": {"albedo": a}, "camera": {}}, target, i,
-                               None if i == 2 else cache)
-            losses.append(loss)
-            assert sorted(cache) == [(t, s) for t in range(2) for s in range(2)]
-            assert all(c is not None and tuple(c[0].shape) == (H // 2, W) for c in cache.values())
-        return torch.stack(losses), a.detach()
-
-    (l0, a0), (l1, a1) = run(False), run(True)
-    assert l0.equal(l1) and a0.equal(a1)
+    a = ts.albedo.clone().requires_grad_()
+    step = inverse.make_train_step(ts, Camera.default("cpu"), torch.optim.Adam([a], lr=0.05),
+                                   W, H, spp=4, config=cfg, cubemap=sky, mesh=mesh)
+    for i in range(3):
+        before = a.detach().clone()
+        with torch.no_grad():
+            img = render_image_sharded(dataclasses.replace(ts, albedo=before),
+                                       Camera.default("cpu"), W, H, i, mesh, spp=4, config=cfg,
+                                       cubemap=sky)
+        want = float(torch.sum((img - target) ** 2)) / (W * H * 3)
+        loss = step({"scene": {"albedo": a}, "camera": {}}, target, i)
+        assert float(loss) == pytest.approx(want, rel=1e-6), i
+        assert not a.detach().equal(before), i
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@ train step record under torch.profiler, and that nothing is recorded, and
 nothing changes, without one.
 
 Exact: the span tree of a frame and of a train step (names, parents,
-counts), the texels the sparse sky lookup counts, the cap's drops, and the
+counts), the texels the plain sky lookup counts, the cap's drops, and the
 frame, bit for bit, with the recorder on and off. The clock: every aten::
 event whose middle falls in a span lies inside it, by the profiler's own
 start_ns() and end_ns().
@@ -18,6 +18,7 @@ from ray_tracing_tpu_torch.config import RenderConfig
 from ray_tracing_tpu_torch.diff import inverse
 from ray_tracing_tpu_torch.kernels import megakernel as mk
 from ray_tracing_tpu_torch.ops import cubemap as tcm
+from ray_tracing_tpu_torch.ops.vec import Vec3
 from ray_tracing_tpu_torch.render.camera import Camera
 from ray_tracing_tpu_torch.scene.parser import parse_scene_string
 from ray_tracing_tpu_torch.scene.synthetic import SCENE_2_TEXT
@@ -25,7 +26,19 @@ from ray_tracing_tpu_torch.utils import profiling
 
 W, H, SPP = 16, 12, 2
 CPU = [torch.profiler.ProfilerActivity.CPU]
-SKIES = {"constant": lambda: None, "checker": lambda: tcm.checker_sky(8, device="cpu")}
+
+
+def float_sky_with_grad():
+    """A float 8x8 sky whose planes require grad: render_frame keeps the
+    plain lookup and compose for it (kernels/megakernel.py::
+    fused_sky_compose)."""
+    base = tcm.gradient_sky(8, device="cpu")
+    r, g, b = (t.clone().requires_grad_(True) for t in (base.r, base.g, base.b))
+    return tcm.CubemapData(None, r, g, b, base.h, base.w)
+
+
+SKIES = {"constant": lambda: None, "checker": lambda: tcm.checker_sky(8, device="cpu"),
+         "float_grad": float_sky_with_grad}
 
 
 @pytest.fixture(autouse=True)
@@ -69,15 +82,15 @@ def test_no_profiler_records_nothing():
     assert profiling.span("a", pixels=1) is profiling.span("b")
     frame()
     with profiling.span("outside"):
-        profiling.add_counts(texels=1)
+        pass
     assert profiling.recorded() == [] and profiling.dropped() == 0
 
 
 @pytest.mark.parametrize("sky,config,per_pixel,fused", [
     ("constant", RenderConfig(), 1, True),
-    ("checker", RenderConfig(), 1, True),                          # the sky cache
-    ("checker", RenderConfig(sky_sparse_gather=True), 1, False),  # 192 pixels: the full arm
-    ("checker", RenderConfig(env_filter="bilinear"), 4, True),    # no cache, 4 texels a pixel
+    ("checker", RenderConfig(), 1, True),
+    ("float_grad", RenderConfig(), 1, False),                     # the plain lookup
+    ("checker", RenderConfig(env_filter="bilinear"), 4, True),    # 4 texels a pixel
 ])
 def test_frame_records_its_span_tree(sky, config, per_pixel, fused):
     with torch.profiler.profile(activities=CPU):
@@ -115,14 +128,14 @@ def test_train_step_records_its_span_tree(mode, fwd):
     (RenderConfig(), "constant", ()),
     (RenderConfig(env_filter="bilinear", soft_silhouette_temp=0.08), "constant",
      ("soft_silhouettes",)),
-    (RenderConfig(sky_sparse_gather=True), "checker", ("sky_lookup",))],
-    ids=["fused", "bilinear", "sparse"])
+    (RenderConfig(), "float_grad", ("sky_lookup",))],
+    ids=["fused", "bilinear", "plain"])
 def test_spans_enclose_the_aten_events_they_issued(config, sky, lookup):
     """The spans' clock is the profiler's: every aten:: event whose middle
     falls in a span starts and ends inside it, and each span that issues
     tensor work holds some (a "soft_silhouettes" span where the frame is
-    blended with the soft primary visibility, a "sky_lookup" span where the
-    sparse lookup keeps the plain lookup and compose)."""
+    blended with the soft primary visibility, a "sky_lookup" span where a
+    sky that requires grad keeps the plain lookup and compose)."""
     frame(sky, config)  # the first frame's one-time work stays out of the profile
     with torch.profiler.profile(activities=CPU) as prof:
         frame(sky, config)
@@ -190,24 +203,19 @@ def test_a_span_on_another_thread_is_a_root_there():
     assert o0 <= i0 <= i1 <= o1
 
 
-@pytest.mark.parametrize("size,fresh_blocks,cached_blocks,texels", [
-    (4 * tcm.SPARSE_BLOCK, (0, 2), (), 2 * tcm.SPARSE_BLOCK),   # compacted, no cache
-    (4 * tcm.SPARSE_BLOCK, (0, 2), (0,), tcm.SPARSE_BLOCK),     # block 0 from the cache
-    (4 * tcm.SPARSE_BLOCK + 7, (0, 2), (), 4 * tcm.SPARSE_BLOCK + 7),  # the full arm
+@pytest.mark.parametrize("sky,config,texels", [
+    ("checker", RenderConfig(), W * H),
+    ("checker", RenderConfig(env_filter="bilinear"), 4 * W * H),
+    ("constant", RenderConfig(env_filter="bilinear"), W * H),  # a 1x1 sky: one texel
 ])
-def test_the_sparse_sky_lookup_counts_its_texels(size, fresh_blocks, cached_blocks, texels):
-    sky = tcm.checker_sky(8, device="cpu")
-    flat = torch.arange(size, dtype=torch.int32) % sky.packed.numel()
-    need = torch.zeros(size, dtype=torch.bool)
-    for b in fresh_blocks:
-        need[b * tcm.SPARSE_BLOCK:(b + 1) * tcm.SPARSE_BLOCK] = True
-    valid = torch.zeros(size, dtype=torch.bool)
-    for b in cached_blocks:
-        valid[b * tcm.SPARSE_BLOCK:(b + 1) * tcm.SPARSE_BLOCK] = True
-    cache = (flat, tcm.gather_texels(sky, flat, valid), valid) if cached_blocks else ()
-    want = tcm.sparse_sky_lookup(sky, flat, need, *cache)
+def test_the_plain_sky_lookup_counts_its_texels(sky, config, texels):
+    """sky_lookup opens its span "sky_lookup" with the texels it gathers,
+    and looks the sky up as sample_cubemap does."""
+    cubemap = SKIES[sky]() or tcm.constant_sky(device="cpu")
+    planes = torch.randn((10, H, W), generator=torch.Generator().manual_seed(4))
+    d = Vec3(planes[3], planes[4], planes[5])
+    want = tcm.sample_cubemap(cubemap, d, bilinear=config.env_filter == "bilinear")
     with torch.profiler.profile(activities=CPU):
-        with profiling.span("sky_lookup"):
-            got = tcm.sparse_sky_lookup(sky, flat, need, *cache)
-    assert torch.equal(got, want)
+        got = mk.sky_lookup(planes, cubemap, config, W * H)
+    assert torch.equal(got.to_array(), want.to_array())
     assert tree(profiling.recorded()) == [("sky_lookup", -1, {"texels": texels})]

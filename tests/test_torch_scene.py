@@ -139,8 +139,9 @@ def test_config_fields_match_jax():
     from ray_tracing_tpu.config import RenderConfig as JCfg
     from ray_tracing_tpu_torch.config import DEFAULT_CONFIG, RenderConfig as TCfg
 
-    # one default differs on purpose: the port's sparse sky lookup is opt-in
-    # (its tier choice reads a count on the host every sample)
-    assert dataclasses.asdict(JCfg()) == {**dataclasses.asdict(TCfg()), "sky_sparse_gather": True}
-    assert not TCfg().sky_sparse_gather
+    # the port has no sparse sky lookup: the JAX package's two fields of it
+    # are the only ones it lacks
+    jax_only = {"sky_sparse_gather": True, "sky_sparse_budget_frac": 0.125}
+    assert dataclasses.asdict(JCfg()) == {**dataclasses.asdict(TCfg()), **jax_only}
+    assert not set(jax_only) & {f.name for f in dataclasses.fields(TCfg)}
     assert TCfg().replace(bounces=3).bounces == 3 and DEFAULT_CONFIG == TCfg()

@@ -180,26 +180,29 @@ def test_rays_counted_at_each_pass_spp():
         rays_per_frame(32, 24, FULL_RES_SPP, CFG), rays_per_frame(32, 24, FULL_RES_SPP, CFG)]
 
 
-def test_pass_threads_the_sky_cache():
-    """Pyramid passes leave the cache alone, full-res passes feed it in and
-    keep what comes back, a camera event drops it."""
+def test_pass_hands_render_fn_the_pyramid_scale_and_pass_seed():
+    """Each pass calls render_fn(scene, camera, film, seed, scale) with the
+    pyramid's scale, the seed pass_seed(seed, passes done) and the film of
+    the last pass; a camera event restarts the pyramid on a fresh film."""
+    from ray_tracing_tpu_torch.render.film import pass_seed
+
     svc = RenderService(sphere_scene(), 32, 24, RenderConfig(bounces=2, shadow_samples=1,
                                                              init_scale=2), sky(),
                         device="cpu")
     real, seen = svc.render_fn, []
 
-    def spy(scene, camera, film, seed, scale, sky_cache=None):
-        seen.append((scale, sky_cache))
-        film, _, spp = real(scene, camera, film, seed, scale, sky_cache)
-        return film, (scale, len(seen)) if scale == 1 else sky_cache, spp
+    def spy(scene, camera, film, seed, scale):
+        seen.append((scale, seed, float(film.weight)))
+        return real(scene, camera, film, seed, scale)
 
     svc.render_fn = spy
     for _ in range(3):
         svc.step()
-    assert seen == [(2, None), (1, None), (1, (1, 2))] and svc._sky_cache == (1, 3)
+    assert seen == [(2, pass_seed(svc.seed, 0), 0.0), (1, pass_seed(svc.seed, 1), 1 / 4),
+                    (1, pass_seed(svc.seed, 2), 1 / 4 + FULL_RES_SPP)]
     svc.post("a")
     svc.step()
-    assert seen[-1] == (2, None)
+    assert seen[-1] == (2, pass_seed(svc.seed, 3), 0.0)
 
 
 def test_film_checkpoint_resume(tmp_path):

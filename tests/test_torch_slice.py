@@ -241,8 +241,7 @@ def test_entry_points_raise_without_device_argument(no_card, tmp_path):
         lambda: Film.zero(8, 6),
         lambda: render_pass(scene, cam, film, 0, 2, cubemap=sky),
         lambda: render_pass_cuda(scene, cam, film, 0, 2, cubemap=sky),
-        lambda: render_pass_cuda(scene, cam, film, 0, 1, cubemap=sky, spp=4,
-                                 return_sky_cache=True),
+        lambda: render_pass_cuda(scene, cam, film, 0, 1, cubemap=sky, spp=4),
         lambda: make_cuda_render_fn(TCfg(), sky),
         lambda: RenderService(scene, 8, 6, TCfg(), sky),
         lambda: parse_scene_string_native(SCENE_2_TEXT),
