@@ -117,7 +117,7 @@ from ray_tracing_tpu_torch.scene.synthetic import (
     random_objects,
 )
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, Scene
-from ray_tracing_tpu_torch.utils import flops, gather_probe
+from ray_tracing_tpu_torch.utils import flops, gather_probe, profiling
 from ray_tracing_tpu_torch.utils.timing import device_seconds
 
 WIDTH, HEIGHT = 1920, 1080
@@ -147,9 +147,10 @@ BWD_CAM_RTOL, BWD_CAM_ATOL = 2e-2, 5e-4
 TRAIN_SLICES = 4
 FIT_STEPS = 5
 # Samples of the gradient whose index planes would pass the fetch budget
-# (kernels/megakernel.py::FETCH_RECORD_BUDGET_BYTES) on the room: 40 planes
-# of 8.3 MB per sample, so 97 samples or more run "replay".
-OVER_BUDGET_SPP = 100
+# (kernels/megakernel.py::FETCH_RECORD_BUDGET_BYTES) on the room: 40 int8
+# planes of 2.07 MB per sample, so 386 samples or more run "replay" (97 at
+# four bytes an index).
+OVER_BUDGET_SPP = 386
 # The backward kernels by backward_kernel's name: launch counter and plain
 # version of the two that keep no index planes.
 BWD_COUNTER = {k: "megakernel_bwd_" + k for k in mk.BWD_KERNELS}
@@ -235,9 +236,10 @@ def phase_device() -> dict:
     return {"kind": name, "smi": smi, "max_sm_clock_mhz": float(clock), "sms": sms}
 
 
-# Winner source of a backward kernel's instantiation -> its name in the report.
-_WINNERS = {"FetchWinners": "bwd_fetch", "RecordedWinners": "bwd_replay",
-            "TracedWinners": "bwd_direct"}
+# Winner source of a backward kernel's instantiation -> its name in the report
+# (K3 at int8 index planes; at int16 it is "bwd_fetch_i16").
+_WINNERS = {"FetchWinnersIsE": "bwd_fetch_i16", "FetchWinners": "bwd_fetch",
+            "RecordedWinners": "bwd_replay", "TracedWinners": "bwd_direct"}
 
 
 def _ptxas_report(log: str) -> dict:
@@ -251,7 +253,9 @@ def _ptxas_report(log: str) -> dict:
         if m:
             sym = m.group(1)
             if "fwd_kernel" in sym:
-                current = "fwd_b1" if "ILb1E" in sym else "fwd_b0"
+                # K2 stores int8 planes (a `signed char*`), or int16 (`short*`)
+                current = ("fwd_b0" if "ILb1E" not in sym
+                           else "fwd_b1_i16" if "PsN2rt6Params" in sym else "fwd_b1")
             elif "peak_fma_kernel" in sym:
                 current = "peak_fma"
             elif "gather_staged_kernel" in sym:
@@ -423,18 +427,20 @@ def phase_build() -> dict:
     names = (mk.KERNEL_LIBRARY, mk.BWD_KERNEL_LIBRARY, mk.RETRACE_KERNEL_LIBRARY,
              peak.LIBRARY, gather_probe.LIBRARY, mk.SKY_COMPOSE_LIBRARY)
     infos, kernels, wall = build_libraries(names)
-    # fwd_b0: plain forward, fwd_b1: recording; bwd_*: the backward kernel of
-    # each winner source; the FMA peak (K6), the gather (P1: a small table
+    # fwd_b0: plain forward, fwd_b1: recording (int8 index planes; fwd_b1_i16
+    # int16); bwd_*: the backward kernel of each winner source (bwd_fetch_i16:
+    # K3 on int16 planes); the FMA peak (K6), the gather (P1: a small table
     # staged in shared memory, or read through L1 and L2), and a sample's sky
     # compose and its adjoint, at the nearest texel and bilinear, and the
     # soft silhouettes' composite and its adjoint
-    if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "bwd_fetch", "bwd_replay",
+    if set(kernels) - {"callees"} != {"fwd_b0", "fwd_b1", "fwd_b1_i16", "bwd_fetch",
+                                      "bwd_fetch_i16", "bwd_replay",
                                       "bwd_direct", "peak_fma", "gather_probe",
                                       "gather_probe_staged", "sky_compose",
                                       "sky_compose_adjoint", "sky_compose_bilinear",
                                       "sky_compose_bilinear_adjoint", "soft_silhouettes",
                                       "soft_silhouettes_adjoint"}:
-        raise RuntimeError("expected fourteen kernels in the ptxas logs:\n"
+        raise RuntimeError("expected sixteen kernels in the ptxas logs:\n"
                            + "\n".join(i["log"] for i in infos))
     # K6 must be fused multiply-adds although every library is built with
     # --fmad=false: the unrolled body alone holds 64 x 8 of them
@@ -1382,17 +1388,28 @@ def phase_main_path(scenes, camera, sky) -> dict:
             raise RuntimeError(f"{name}: wrong image {tuple(img.shape)} {img.dtype}")
         if not torch.isfinite(img).all() or float(img.min()) < 0 or float(img.max()) > 1:
             raise RuntimeError(f"{name}: image is not finite in [0,1]")
-        # the training-side entry: one recorded sample at full width
-        tiles = mk.render_tiles_cuda(scenes[name], camera, WIDTH, HEIGHT, seed=1,
-                                     config=cfg, record=True)
-        torch.cuda.synchronize()
+        # the training-side entry: one recorded sample at full width, under
+        # a profiler so that its span keeps the bytes of index planes written
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            tiles = mk.render_tiles_cuda(scenes[name], camera, WIDTH, HEIGHT, seed=1,
+                                         config=cfg, record=True)
+            torch.cuda.synchronize()
+        counted = [c["index_bytes"] for n, *_, c in profiling.recorded()
+                   if n == "kernel.megakernel_fwd_record"]
+        profiling.clear()
         recs = tiles["records"]
         n_rec = mk.record_layout(cfg, scenes[name].has_light)
         if tuple(recs.shape) != (n_rec, HEIGHT, WIDTH) or int(recs.min()) < -1 \
                 or int(recs.max()) >= scenes[name].num_objects:
             raise RuntimeError(f"{name}: bad index planes {tuple(recs.shape)}")
+        dtype = mk.record_dtype(scenes[name].num_objects)
+        if recs.dtype != dtype or counted != [recs.numel() * dtype.itemsize]:
+            raise RuntimeError(f"{name}: index planes of {recs.dtype}, expected {dtype}; "
+                               f"the span counted {counted} bytes")
         out[name] = {"image": img, "mean": float(img.mean()), "tiles": tiles,
-                     "peak_bytes": torch.cuda.max_memory_allocated()}
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "index_dtype": str(recs.dtype), "index_bytes": counted[0]}
     counts = dict(mk.launch_counts)  # read right after the main path
     for k in ("megakernel_fwd", "megakernel_fwd_record"):
         if counts[k] < 1:
@@ -1423,6 +1440,8 @@ def phase_main_path(scenes, camera, sky) -> dict:
         report[name] = {"mean": out[name]["mean"], "plain_mean": float(plain.mean()),
                         "share_pixels_equal_plain": share,
                         "recorded_sample_vs_plain": recorded,
+                        "index_dtype": out[name]["index_dtype"],
+                        "index_bytes": out[name]["index_bytes"],
                         "max_memory_allocated": out[name]["peak_bytes"]}
     emit("main_path", size=[WIDTH, HEIGHT], spp=SPP, sky=[SKY_SIZE, SKY_SIZE],
          launches=counts, scenes=report)
@@ -1893,8 +1912,10 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
     # default configuration runs "replay", the forward keeps nothing
     cfg_budget = RenderConfig()
     mode = mk.effective_bwd_mode(room, cfg_budget, WIDTH, HEIGHT, OVER_BUDGET_SPP)
-    if mode != "replay":
-        raise RuntimeError(f"{OVER_BUDGET_SPP} samples: effective_bwd_mode says {mode}")
+    below = mk.effective_bwd_mode(room, cfg_budget, WIDTH, HEIGHT, OVER_BUDGET_SPP - 1)
+    if (mode, below) != ("replay", "fetch"):
+        raise RuntimeError(f"{OVER_BUDGET_SPP} samples: effective_bwd_mode says {mode}, "
+                           f"{OVER_BUDGET_SPP - 1}: {below}")
     before = dict(mk.launch_counts)
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
@@ -1927,7 +1948,7 @@ def phase_train_path(scenes, camera, sky) -> tuple[dict, dict]:
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "memory_reserved": torch.cuda.memory_reserved(),
         "fetch_index_plane_bytes": OVER_BUDGET_SPP * mk.record_layout(cfg_budget, True)
-                                   * WIDTH * HEIGHT * 4,
+                                   * WIDTH * HEIGHT * mk.record_dtype(room.num_objects).itemsize,
         "albedo_grad_abs_sum": float(grads["albedo"].abs().sum())}
 
     # (c) the invert app at its defaults (96x64, 4 samples, 100 steps on p0,
@@ -2484,6 +2505,11 @@ def kernel_resources(ptxas: dict, scenes, camera) -> dict:
         for name in ("scene_2", "room"):
             job = mk.make_tile_job(scenes[name], camera, WIDTH, HEIGHT, RenderConfig())
             out[kname][name] = mk.launch_info(launch, job)
+    # the int16 instantiations of K2 and K3: ptxas' report (no scene here
+    # has 128 objects; phase large_scene launches them)
+    for kname in ("fwd_b1_i16", "bwd_fetch_i16"):
+        out[kname] = {k: ptxas[kname][k] for k in ("registers", "stack", "spill_stores",
+                                                   "spill_loads")}
     return out
 
 
@@ -2531,6 +2557,8 @@ def phase_large_scene(camera) -> None:
     job = mk.make_tile_job(big, camera, WIDTH, HEIGHT, RenderConfig())
     cot = random_cotangents(job)
     recs = [mk.run_tiles(job, s, record=True)[1] for s in range(3)]
+    if recs[0].dtype != torch.int16:  # past 127 objects: K2 and K3 at two bytes an index
+        raise RuntimeError(f"{big.num_objects} objects: index planes of {recs[0].dtype}")
     out = {"k1_ms": time_launches(lambda s: mk.run_tiles(job, s), 3, warmup=0),
            "k3_ms": time_launches(lambda s: mk._launch_bwd("fetch", job, s % 3, 0, recs[s % 3], cot),
                                   3, warmup=0),
@@ -2538,6 +2566,7 @@ def phase_large_scene(camera) -> None:
                                   3, warmup=0)}
     k2_ms = time_launches(lambda s: mk.run_tiles(job, s, record=True), 1, warmup=0)
     emit("large_scene", objects=big.num_objects, size=[WIDTH, HEIGHT], launches_each=3,
+         index_dtype=str(recs[0].dtype),
          unit="ms per sample, median", k2_ms_one_launch=k2_ms,
          fetch_fwd_bwd_ms=k2_ms + out["k3_ms"], replay_fwd_bwd_ms=out["k1_ms"] + out["k4_ms"], **out)
 

@@ -52,8 +52,9 @@ class RenderConfig:
     env_filter: str = "nearest"  # "nearest" | "bilinear"
 
     # Backward pass under grad (kernels/megakernel.py::backward_kernel).
-    # "fetch": the forward records one int32 winner index per trace call
-    #   and sample, kept until backward(), and the backward kernel replays
+    # "fetch": the forward records one winner index per trace call and
+    #   sample (int8 up to 127 objects, int16 above: kernels/megakernel.py::
+    #   record_dtype), kept until backward(), and the backward kernel replays
     #   the paths from them; past FETCH_RECORD_BUDGET_BYTES of those planes
     #   render_image_cuda runs "replay" instead (effective_bwd_mode).
     # "replay": the forward keeps nothing; the backward kernel traces each

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel ray_tracing_tpu/kernels/megakernel.py::_fwd_kernel
 // (launched by _run_fwd), in both of its modes: RECORD=false is the plain
-// forward, RECORD=true also stores one int32 winner-index plane per trace
-// call (the residuals a path-replaying backward pass starts from).
+// forward, RECORD=true also stores one winner-index plane per trace call
+// (the residuals a path-replaying backward pass starts from), of the
+// narrowest integer that holds the scene's object indices: int8 up to 127
+// objects, int16 above (kernels/megakernel.py::record_dtype).
 //
 // What it computes, per pixel and per sample: screen coordinates (with the
 // row offset of a row-slice render and optional sub-pixel jitter), the
@@ -17,13 +19,15 @@
 //
 // What bounds it on this card: that depends on the scene. A pixel reads
 // nothing from device memory but the shared scene table and writes 40 bytes
-// (plus 4 bytes per recorded trace call). Where most paths leave the scene
-// at once (three spheres under an open sky) the float work is so small that
-// writing the planes is the bound; in an enclosed, lit scene every path
+// (plus 1 or 2 bytes per recorded trace call). Where most paths leave the
+// scene at once (three spheres under an open sky) the float work is so small
+// that writing the planes is the bound; in an enclosed, lit scene every path
 // bounces to the end and casts shadow rays, and float operations are the
 // bound, by a wide margin over the bytes. In both cases the kernel as it
 // stands is limited by neither: by divergence between paths that die at
-// different bounces, by the integer work of the generator and by latency.
+// different bounces, by the integer work of the generator and by latency
+// (storing the index planes at one byte instead of four left the recording
+// kernel's time on three spheres unchanged, PERF.md section 6).
 //
 // What the design does about it:
 //   * one thread per pixel, blocks of 32x8 pixels: the ten stores of a warp
@@ -72,10 +76,13 @@ namespace {
 // still faster (PERF.md, section 6).
 constexpr int FWD_MIN_BLOCKS = 3;
 
-template <bool RECORD>
-__global__ void __launch_bounds__(THREADS, FWD_MIN_BLOCKS)
-fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
-           float* __restrict__ planes, int* __restrict__ rec, Params p) {
+// The kernel's body over index planes of type Index (int8_t or int16_t);
+// the entries stored are the same integers at either width, -1 included.
+template <bool RECORD, class Index>
+__device__ __forceinline__ void fwd_body(const float* __restrict__ scene,
+                                         const float* __restrict__ cam,
+                                         float* __restrict__ planes, Index* __restrict__ rec,
+                                         Params p) {
     // dynamic shared memory: the trace table, then the scene rows
     extern __shared__ float4 s_dyn[];
     __shared__ float s_cam[16];
@@ -148,7 +155,7 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
         if (!alive) {
             if (RECORD) {
                 for (int k = b * rec_per_bounce; k < p.bounces * rec_per_bounce; ++k) {
-                    rec[(size_t)k * plane + pix] = -1;
+                    rec[(size_t)k * plane + pix] = (Index)-1;
                 }
             }
             break;
@@ -158,7 +165,7 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
         const Ray ray = make_ray(ro, rd);
         const V3 d = ray.d;
         Hit h = trace(sc, ray);
-        if (RECORD) rec[(size_t)(b * rec_per_bounce) * plane + pix] = h.obj;
+        if (RECORD) rec[(size_t)(b * rec_per_bounce) * plane + pix] = (Index)h.obj;
 
         // miss: remember direction and throughput for the sky lookup
         bool miss_now = alive && !h.hit;
@@ -182,7 +189,7 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
                     shadow_ray(p, h.point, to_light, rand_dir, sample_ro, sample_dir);
                     winner = shadow_winner(sc, p, sample_ro, sample_dir);
                 }
-                if (RECORD) rec[(size_t)(b * rec_per_bounce + 1 + s) * plane + pix] = winner;
+                if (RECORD) rec[(size_t)(b * rec_per_bounce + 1 + s) * plane + pix] = (Index)winner;
                 if (accept) {
                     num += 1.0f;
                     if (winner >= 0) {
@@ -250,49 +257,77 @@ fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
     planes[9 * plane + pix] = died_miss ? 1.0f : 0.0f;
 }
 
-}  // namespace
+// The kernel: one overload a width of the index planes, both named
+// fwd_kernel<RECORD>. K1 (RECORD false) stores no plane and is the int8_t
+// overload's.
+template <bool RECORD>
+__global__ void __launch_bounds__(THREADS, FWD_MIN_BLOCKS)
+fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
+           float* __restrict__ planes, int8_t* __restrict__ rec, Params p) {
+    fwd_body<RECORD>(scene, cam, planes, rec, p);
+}
 
-// Launches the forward kernel on `stream`. scene: (n_objects,16) float32,
-// cam: 16 float32, planes: (10,height,width) float32, rec: (bounces*(1+ns),
-// height,width) int32 or null (null selects the non-recording kernel); all
-// device pointers. Returns the cudaError_t of the launch (0 = launched).
+template <bool RECORD>
+__global__ void __launch_bounds__(THREADS, FWD_MIN_BLOCKS)
+fwd_kernel(const float* __restrict__ scene, const float* __restrict__ cam,
+           float* __restrict__ planes, int16_t* __restrict__ rec, Params p) {
+    fwd_body<RECORD>(scene, cam, planes, rec, p);
+}
+
+// The overload of fwd_kernel<RECORD> that stores Index.
+template <bool RECORD, class Index>
+void (*fwd_function())(const float*, const float*, float*, Index*, Params) {
+    return fwd_kernel<RECORD>;
+}
+
 // Dynamic shared memory of one block: the trace table and the scene rows.
-static size_t fwd_smem(int n_objects, int n_spheres) {
+size_t fwd_smem(int n_objects, int n_spheres) {
     return ((size_t)trace_table_floats(n_objects, n_spheres) + (size_t)n_objects * SCENE_COLS) *
            sizeof(float);
 }
 
-extern "C" int rt_megakernel_fwd(const float* scene, const float* cam, float* planes, int* rec,
-                                 RT_PARAM_ARGS, void* stream) {
-    RT_FILL_PARAMS(p);
-
-    const size_t smem = fwd_smem(n_objects, n_spheres);
+template <bool RECORD, class Index>
+int launch_fwd(const float* scene, const float* cam, float* planes, Index* rec, const Params& p,
+               cudaStream_t s) {
+    const size_t smem = fwd_smem(p.n_objects, p.n_spheres);
     dim3 block(BLOCK_W, BLOCK_H);
-    dim3 grid((width + BLOCK_W - 1) / BLOCK_W, (height + BLOCK_H - 1) / BLOCK_H);
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err;
-    if (rec != nullptr) {
-        err = cudaFuncSetAttribute(fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fwd_kernel<true><<<grid, block, smem, s>>>(scene, cam, planes, rec, p);
-    } else {
-        err = cudaFuncSetAttribute(fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fwd_kernel<false><<<grid, block, smem, s>>>(scene, cam, planes, rec, p);
-    }
+    dim3 grid((p.width + BLOCK_W - 1) / BLOCK_W, (p.height + BLOCK_H - 1) / BLOCK_H);
+    cudaError_t err = cudaFuncSetAttribute(fwd_function<RECORD, Index>(),
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fwd_kernel<RECORD><<<grid, block, smem, s>>>(scene, cam, planes, rec, p);
     return (int)cudaGetLastError();
 }
 
-// What a launch of the forward kernel (record != 0: the recording one)
-// takes at this scene size: info[0] registers per thread, [1] local memory
+}  // namespace
+
+// Launches the forward kernel on `stream`. scene: (n_objects,16) float32,
+// cam: 16 float32, planes: (10,height,width) float32, rec: (bounces*(1+ns),
+// height,width) winner indices of index_bytes bytes each (1: int8, 2:
+// int16) or null (null selects the non-recording kernel); all device
+// pointers. Returns the cudaError_t of the launch (0 = launched).
+extern "C" int rt_megakernel_fwd(const float* scene, const float* cam, float* planes, void* rec,
+                                 int index_bytes, RT_PARAM_ARGS, void* stream) {
+    RT_FILL_PARAMS(p);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (rec == nullptr) return launch_fwd<false>(scene, cam, planes, (int8_t*)nullptr, p, s);
+    if (index_bytes == 1) return launch_fwd<true>(scene, cam, planes, (int8_t*)rec, p, s);
+    if (index_bytes == 2) return launch_fwd<true>(scene, cam, planes, (int16_t*)rec, p, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// What a launch of the forward kernel takes at this scene size (record 0:
+// K1; 1 or 2: the recording one at that many bytes an index): info[0] registers per thread, [1] local memory
 // (stack) bytes per thread, [2] static and [3] dynamic shared memory bytes
 // per block, [4] 0 (no entry states), [5] blocks resident per SM, [6]
 // threads per block. Returns a cudaError_t (0 = success).
 extern "C" int rt_megakernel_fwd_info(int n_objects, int n_spheres, int record, int* info) {
     const size_t smem = fwd_smem(n_objects, n_spheres);
-    const void* fn = record ? (const void*)fwd_kernel<true> : (const void*)fwd_kernel<false>;
+    const void* fn = record == 0   ? (const void*)fwd_function<false, int8_t>()
+                     : record == 1 ? (const void*)fwd_function<true, int8_t>()
+                     : record == 2 ? (const void*)fwd_function<true, int16_t>()
+                                   : nullptr;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return (int)err;

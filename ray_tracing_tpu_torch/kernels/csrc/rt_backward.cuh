@@ -12,7 +12,8 @@
 //   TracedWinners   megakernel_bwd_retrace.cu  K5, "direct": K4's, in an
 //                                              instantiation of its own
 //
-// A Winners type has a constructor (const int* rec, size_t plane, size_t pix),
+// A Winners type has a constructor (const int* rec, size_t plane, size_t pix)
+// (FetchWinners reads the planes at `rec` at its own width, int8 or int16),
 // a constant TRACES (whether it traces, and so needs the trace table) and
 // three device methods, each given the shared-memory tables (Tables of
 // rt_device.cuh): primary(sc, p, b, ray, saved, t, axis), the winner of

@@ -47,7 +47,10 @@ Order of the winner-index planes (record_layout), as in the JAX package: for
 each bounce one primary plane, then, when next-event estimation runs, one
 plane per shadow sample: plane ``b*(1+ns)`` is bounce b's closest hit, plane
 ``b*(1+ns)+1+s`` its shadow sample s; -1 is a miss. Without a light (or with
-``shadow_samples == 0``) there are ``bounces`` planes. Dead lanes: the
+``shadow_samples == 0``) there are ``bounces`` planes. Their integer type is
+the narrowest that holds the scene's object indices (``record_dtype``: int8
+up to 127 objects, int16 above), on the card and in the plain version
+alike; the entries are the same at any width. Dead lanes: the
 primary entry of a bounce the path did not enter alive is -1, and every
 shadow entry of a bounce whose primary entry is -1 (the bounce where the path
 left the scene and every bounce after it) is -1 too (``dead_lane_rule``);
@@ -167,8 +170,9 @@ launch_counts = {"megakernel_fwd": 0, "megakernel_fwd_record": 0,
                  "soft_silhouettes": 0, "soft_silhouettes_adjoint": 0}
 
 # Device memory the winner-index planes of one differentiated frame may take
-# (spp * n_rec * H * W * 4 bytes are alive until backward()): two fifths of
-# an 80 GB card. A module constant so that tests can shrink it.
+# (spp * n_rec * H * W entries of record_dtype(N), 1 or 2 bytes each, are
+# alive until backward()): two fifths of an 80 GB card. A module constant so
+# that tests can shrink it.
 FETCH_RECORD_BUDGET_BYTES = 32e9
 
 
@@ -337,7 +341,9 @@ class FetchReplayTracer:
         self._shadow_li = _single_emissive_index(self)
 
     def _next(self):
-        o = self._objs[self._i]
+        # PyTorch gathers with int64 indices, not with record_dtype's int8 or
+        # int16: one widened plane at a time, alive while its call replays
+        o = self._objs[self._i].long()
         self._i += 1
         return o
 
@@ -500,14 +506,28 @@ def _tile_uv(width, height, norm_height, row0, device):
 
 def record_layout(config: RenderConfig, has_light: bool) -> int:
     """Number of winner-index planes of one sample; their order is in the
-    module docstring. Contract of their entries: an entry holds the winner
-    of its trace call (-1: nothing hit), except on dead lanes. The primary
+    module docstring, their type record_dtype's. Contract of their entries:
+    an entry holds the winner of its trace call (-1: nothing hit), except on
+    dead lanes. The primary
     entry of a bounce the path did not enter alive is -1; each shadow entry
     of a bounce whose primary entry is -1 is -1 as well (dead_lane_rule),
     whatever its ray would hit. The recording kernel stops tracing where the
     path dies and writes these entries directly."""
     ns = config.shadow_samples if has_light else 0
     return config.bounces * (1 + ns)
+
+
+def record_dtype(n_objects: int) -> torch.dtype:
+    """The integer type of the winner-index planes of a scene of `n_objects`
+    objects: the narrowest whose range holds the count, and so every index
+    in [-1, n_objects - 1]. int8 up to 127 objects, int16 up to 32767; int32
+    beyond, which only the plain version takes (the kernels stage the scene
+    in shared memory and hold far fewer objects)."""
+    if n_objects <= 127:
+        return torch.int8
+    if n_objects <= 32767:
+        return torch.int16
+    return torch.int32
 
 
 def dead_lane_rule(records, ns: int):
@@ -609,8 +629,9 @@ def _sample_inputs(job: TileJob, seed: int, row0: int):
 def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False):
     """The plain PyTorch version of the forward CUDA kernel, on whatever
     device the job's tensors lie: (planes (10,H,W) float32, records
-    (n_rec,H,W) int32 or None). The records are the tracer's with the
-    dead-lane rule applied (dead_lane_rule), as the kernel writes them."""
+    (n_rec,H,W) of record_dtype(N), or None). The records are the tracer's
+    with the dead-lane rule applied (dead_lane_rule), as the kernel writes
+    them."""
     shape = (job.height, job.width)
     u, v, draws = _sample_inputs(job, seed, row0)
     view = SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
@@ -619,8 +640,8 @@ def run_tiles_plain(job: TileJob, seed: int, row0: int = 0, record: bool = False
     planes = torch.stack(outs)
     if not record:
         return planes, None
-    recs = torch.cat([o.reshape(-1, *shape) for o in tracer.objs]).to(torch.int32)
-    return planes, dead_lane_rule(recs, job.ns)
+    recs = torch.cat([o.reshape(-1, *shape) for o in tracer.objs])
+    return planes, dead_lane_rule(recs.to(record_dtype(len(job.obj_type))), job.ns)
 
 
 def _load(library: str, function: str, argtypes):
@@ -638,14 +659,20 @@ _SCALAR_ARGS = [ctypes.c_int] * 13 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 
 def _kernel_function():
-    return _load(KERNEL_LIBRARY, "rt_megakernel_fwd", [ctypes.c_void_p] * 4 + _SCALAR_ARGS)
+    """The forward kernel's C entry: four pointers, the bytes an index of
+    the planes takes, the scalars."""
+    return _load(KERNEL_LIBRARY, "rt_megakernel_fwd",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] + _SCALAR_ARGS)
 
 
 def _bwd_kernel_function(kernel: str):
-    """The loaded C entry point of a backward kernel (BWD_KERNELS); all
-    three take the same arguments."""
+    """The loaded C entry point of a backward kernel (BWD_KERNELS): seven
+    pointers and the scalars; "fetch" takes the bytes an index of its planes
+    takes after its fourth pointer, the index planes."""
     library, entry = BWD_KERNELS[kernel]
-    return _load(library, entry, [ctypes.c_void_p] * 7 + _SCALAR_ARGS)
+    width = [ctypes.c_int] if kernel == "fetch" else []
+    return _load(library, entry,
+                 [ctypes.c_void_p] * 4 + width + [ctypes.c_void_p] * 3 + _SCALAR_ARGS)
 
 
 def _check_tensor(name, t, shape, dtype, device):
@@ -690,6 +717,17 @@ def _raise_on(err: int, lib, what: str):
         raise RuntimeError(f"{what} launch failed: {text} (cudaError {err})")
 
 
+def _kernel_index_dtype(job: TileJob) -> torch.dtype:
+    """record_dtype of the job's scene, refused where the kernels have no
+    instantiation (past 32767 objects, which their shared-memory tables
+    could not stage anyway)."""
+    dtype = record_dtype(len(job.obj_type))
+    if dtype == torch.int32:
+        raise ValueError(f"{len(job.obj_type)} objects: the kernels take int8 or int16 "
+                         "index planes, up to 32767 objects")
+    return dtype
+
+
 def _launch_fwd(job: TileJob, seed: int, row0: int, record: bool):
     """Launch the forward CUDA kernel on PyTorch's current stream. Does not
     synchronise; raises when the launch is refused."""
@@ -701,10 +739,12 @@ def _launch_fwd(job: TileJob, seed: int, row0: int, record: bool):
         recs = None
         if record:
             n_rec = record_layout(job.config, job.light_index >= 0)
-            recs = torch.empty((n_rec, job.height, job.width), dtype=torch.int32, device=dev)
+            recs = torch.empty((n_rec, job.height, job.width), dtype=_kernel_index_dtype(job),
+                               device=dev)
         err = fn(
             job.rows.data_ptr(), job.cam_pack.data_ptr(), planes.data_ptr(),
-            recs.data_ptr() if record else None, *_scalar_args(job, seed, row0),
+            recs.data_ptr() if record else None, recs.element_size() if record else 0,
+            *_scalar_args(job, seed, row0),
         )
     _raise_on(err, lib, "megakernel_fwd")
     launch_counts["megakernel_fwd_record" if record else "megakernel_fwd"] += 1
@@ -717,7 +757,8 @@ LAUNCH_INFO_FIELDS = ("registers", "stack_bytes", "static_smem_bytes", "dynamic_
 
 def launch_info(kernel: str, job: TileJob) -> dict:
     """What one launch of `kernel` ("fwd", "fwd_record" or a BWD_KERNELS
-    name) takes at the job's scene size and kinds and depth, as the CUDA runtime
+    name) takes at the job's scene size and kinds and depth (and, for the
+    recording forward and "fetch", at record_dtype's width), as the CUDA runtime
     reports it for the built library (LAUNCH_INFO_FIELDS: registers and
     stack per thread, shared memory per block, entry states the backward
     keeps in shared memory, blocks per SM), and the warps resident per SM
@@ -726,12 +767,15 @@ def launch_info(kernel: str, job: TileJob) -> dict:
     if kernel in ("fwd", "fwd_record"):
         lib = build.load_library(KERNEL_LIBRARY)
         fn = lib.rt_megakernel_fwd_info
-        args = (len(job.obj_type), job.n_spheres, int(kernel == "fwd_record"))
+        record = _kernel_index_dtype(job).itemsize if kernel == "fwd_record" else 0
+        args = (len(job.obj_type), job.n_spheres, record)
     else:
         library, entry = BWD_KERNELS[kernel]
         lib = build.load_library(library)
         fn = getattr(lib, entry + "_info")
         args = (len(job.obj_type), job.n_spheres, job.config.bounces)
+        if kernel == "fetch":
+            args += (_kernel_index_dtype(job).itemsize,)
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(job.rows.device):
@@ -743,10 +787,22 @@ def launch_info(kernel: str, job: TileJob) -> dict:
     return out
 
 
+def record_bytes(job: TileJob) -> int:
+    """Bytes of one sample's winner-index planes over the job's frame."""
+    n_rec = record_layout(job.config, job.light_index >= 0)
+    return n_rec * job.height * job.width * record_dtype(len(job.obj_type)).itemsize
+
+
 def run_tiles(job: TileJob, seed: int, row0: int = 0, record: bool = False):
     """One sample per pixel: the CUDA kernel for a job on the card, the
-    plain version for a job on the CPU. Nothing else decides between them."""
-    with span("kernel.megakernel_fwd_record" if record else "kernel.megakernel_fwd"):
+    plain version for a job on the CPU. Nothing else decides between them.
+    The recording launch's span counts `index_bytes`, the bytes of index
+    planes it writes (record_bytes)."""
+    if record:
+        tiles_span = span("kernel.megakernel_fwd_record", index_bytes=record_bytes(job))
+    else:
+        tiles_span = span("kernel.megakernel_fwd")
+    with tiles_span:
         if job.rows.device.type == "cuda":
             return _launch_fwd(job, seed, row0, record)
         if job.rows.device.type != "cpu":
@@ -964,9 +1020,11 @@ def _launch_bwd(kernel: str, job: TileJob, seed: int, row0: int, records, cotang
     _check_job(job)
     dev = job.rows.device
     frame = (job.height, job.width)
+    rec_args = (None,)
     if kernel == "fetch":
         n_rec = record_layout(job.config, job.light_index >= 0)
-        _check_tensor("records", records, (n_rec, *frame), torch.int32, dev)
+        _check_tensor("records", records, (n_rec, *frame), _kernel_index_dtype(job), dev)
+        rec_args = (records.data_ptr(), records.element_size())
     elif records is not None:
         raise ValueError(f"the {kernel} backward takes no index planes")
     if not isinstance(cotangents, torch.Tensor) or tuple(cotangents.shape) != (10, *frame):
@@ -981,8 +1039,7 @@ def _launch_bwd(kernel: str, job: TileJob, seed: int, row0: int, records, cotang
         g_cam = torch.zeros((16,), dtype=torch.float32, device=dev)
         primal = torch.empty((10, *frame), dtype=torch.float32, device=dev) if want_primal else None
         err = fn(
-            job.rows.data_ptr(), job.cam_pack.data_ptr(), cotangents.data_ptr(),
-            records.data_ptr() if records is not None else None,
+            job.rows.data_ptr(), job.cam_pack.data_ptr(), cotangents.data_ptr(), *rec_args,
             g_rows.data_ptr(), g_cam.data_ptr(),
             primal.data_ptr() if want_primal else None, *_scalar_args(job, seed, row0),
         )
@@ -1013,17 +1070,19 @@ def effective_bwd_mode(scene: Scene, config: RenderConfig, width: int,
                        height: int, spp: int) -> str:
     """The backward mode render_image_cuda will EXECUTE under grad.
 
-    bwd_mode="fetch" keeps one int32 winner-index plane per trace call per
-    sample alive until backward(); past FETCH_RECORD_BUDGET_BYTES the mode
-    becomes "replay", which keeps none. Any other configured mode is
-    returned as it is, as the JAX function returns it ("direct" above
-    UNROLL_LIMIT objects runs the replay kernel: backward_kernel names the
-    kernel). Exposed so that a caller can log the mode it ran."""
+    bwd_mode="fetch" keeps one winner-index plane (record_dtype: 1 or 2
+    bytes an entry) per trace call per sample alive until backward(); past
+    FETCH_RECORD_BUDGET_BYTES the mode becomes "replay", which keeps none.
+    Any other configured mode is returned as it is, as the JAX function
+    returns it ("direct" above UNROLL_LIMIT objects runs the replay kernel:
+    backward_kernel names the kernel). Exposed so that a caller can log the
+    mode it ran."""
     if config.bwd_mode != "fetch":
         return config.bwd_mode
     has_light = scene.has_light and config.shadow_samples > 0
     n_rec = record_layout(config, has_light)
-    if spp * n_rec * height * width * 4 > FETCH_RECORD_BUDGET_BYTES:
+    itemsize = record_dtype(scene.num_objects).itemsize
+    if spp * n_rec * height * width * itemsize > FETCH_RECORD_BUDGET_BYTES:
         return "replay"
     return "fetch"
 
@@ -1073,8 +1132,8 @@ def render_tiles_cuda(scene: Scene, camera: Camera, width: int, height: int,
     """One sample per pixel over the (height, width) frame through the CUDA
     kernel. Returns a dict of (H,W) float32 planes named PLANE_NAMES,
     differentiable with respect to the scene's and the camera's leaves;
-    with record=True also "records", the (n_rec,H,W) int32 winner-index
-    planes (and then the planes carry no graph).
+    with record=True also "records", the (n_rec,H,W) winner-index planes of
+    record_dtype(N) (and then the planes carry no graph).
 
     row0/norm_height render a row SLICE of a norm_height-tall frame whose
     rows start at global row row0; aspect overrides the frustum's aspect
@@ -1967,7 +2026,9 @@ def render_image_cuda(scene: Scene, camera: Camera, width: int, height: int,
     very same random numbers. Differentiable end to end: when a leaf of
     `scene` or `camera` requires grad, backward() runs a backward kernel per
     sample (effective_bwd_mode says which mode, backward_kernel which
-    kernel); in "fetch" each sample's forward is the recording kernel.
+    kernel); in "fetch" each sample's forward is the recording kernel, and
+    each sample keeps its winner-index planes until backward(): n_rec*H*W
+    entries of record_dtype(N), one byte each up to 127 objects, two above.
     row0/norm_height/aspect as in render_tiles_cuda. first_sample and
     frame_spp make the `spp` samples a share of a larger frame's
     (frame_sample_seeds): parallel/render.py hands each mesh cell its own.

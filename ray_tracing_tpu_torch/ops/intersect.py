@@ -48,7 +48,7 @@ class Hit:
 
     t: torch.Tensor       # distance along the unit direction; BIG on miss
     hit: torch.Tensor     # bool
-    obj: torch.Tensor     # int32 winner index; -1 on miss
+    obj: torch.Tensor     # winner index (int32 traced, int64 replayed); -1 on miss
     point: Vec3           # hit point (the ray origin on a miss)
     normal: Vec3          # unit normal (zero on a miss)
     albedo: Vec3

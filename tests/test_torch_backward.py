@@ -321,9 +321,10 @@ def test_replay_vjp_matches_jax_fetch_replay_and_direct_autodiff(n_objects, with
 
     jd_rows, jd_cam = jax.grad(loss_direct, argnums=(0, 1))(rows0, jcam)
 
-    # the port: the function run_bwd_plain wraps, on the same records
-    planes, g_rows, g_cam = tmk.replay_vjp(job, ut, vt, draws.torch,
-                                           torch.from_numpy(records.astype(np.int32)),
+    # the port: the function run_bwd_plain wraps, on the same records at the
+    # width the port keeps them
+    narrow = torch.from_numpy(records).to(tmk.record_dtype(n_objects))
+    planes, g_rows, g_cam = tmk.replay_vjp(job, ut, vt, draws.torch, narrow,
                                            compat.cotangents_from_numpy(cot, device="cpu"))
     got_rows, got_cam = compat.grads_to_numpy(g_rows), compat.grads_to_numpy(g_cam)
     assert np.isfinite(got_rows).all() and np.isfinite(got_cam).all()
@@ -363,7 +364,8 @@ def test_replay_primal_equals_direct_tile_physics_bit_for_bit(n_objects):
     recorder = tmk.IndexRecordingTracer(view)
     direct = tmk.tile_physics(view, job.cam_pack, ut, vt, draws.torch, job.config, SHAPE,
                               tracer=recorder)
-    records = torch.cat([o.reshape(-1, *SHAPE) for o in recorder.objs]).to(torch.int32)
+    records = torch.cat([o.reshape(-1, *SHAPE) for o in recorder.objs])
+    records = records.to(tmk.record_dtype(n_objects))
     planes, _, _ = tmk.replay_vjp(job, ut, vt, draws.torch, records, torch.ones((10, *SHAPE)))
     for k, (a, b) in enumerate(zip(planes, direct)):
         assert a.equal(b), tmk.PLANE_NAMES[k]
@@ -463,7 +465,8 @@ def test_dead_lane_rule_changes_no_gradient(text):
     view = tmk.SceneView(job.rows, job.obj_type, job.light_index, job.emissive)
     tracer = tmk.IndexRecordingTracer(view)
     tmk.tile_physics(view, job.cam_pack, u, v, draws, job.config, (24, 40), tracer=tracer)
-    raw = torch.cat([o.reshape(-1, 24, 40) for o in tracer.objs]).to(torch.int32)
+    raw = torch.cat([o.reshape(-1, 24, 40) for o in tracer.objs])
+    raw = raw.to(tmk.record_dtype(len(job.obj_type)))
     planes, ruled = tmk.run_tiles_plain(job, 9, record=True)
     assert ruled.equal(tmk.dead_lane_rule(raw, job.ns))
     if job.ns:
@@ -475,6 +478,25 @@ def test_dead_lane_rule_changes_no_gradient(text):
     assert got[1].equal(want[1]) and got[2].equal(want[2])
     rows, cam = tmk.run_bwd_plain(job, 9, 0, ruled, cot)
     assert rows.equal(got[1]) and cam.equal(got[2])
+
+
+@pytest.mark.parametrize("name", ["scene_2", "one_hundred_thirty_objects"])
+def test_fetch_backward_is_the_same_from_narrow_and_int32_planes(name):
+    """record_dtype stores the very integers: the plain fetch backward from
+    the narrow planes (int8 on scene_2, int16 at 130 objects) and from the
+    same planes widened to int32 gives the same gradients bit for bit."""
+    specs = parse_objects(SCENE_2_TEXT) if name == "scene_2" \
+        else random_objects(130, seed=5, lights=(7,))
+    _, ts = U.scene_pair(specs)
+    job = tmk.make_tile_job(ts, TCamera.default("cpu"), 32, 20,
+                            TCfg(bounces=3, shadow_samples=2))
+    _, narrow = tmk.run_tiles_plain(job, 8, record=True)
+    assert narrow.dtype == (torch.int8 if name == "scene_2" else torch.int16)
+    cot = _cotangents((20, 32))
+    rows, cam = tmk.run_bwd_plain(job, 8, 0, narrow, cot)
+    wide_rows, wide_cam = tmk.run_bwd_plain(job, 8, 0, narrow.to(torch.int32), cot)
+    assert rows.equal(wide_rows) and cam.equal(wide_cam)
+    assert rows.abs().max() > 0
 
 
 def test_gradient_matches_finite_differences_for_smooth_parameters():
@@ -590,7 +612,8 @@ def test_backward_at_more_shadow_samples_than_a_mask_holds_matches_jax(lights):
     tcot = compat.cotangents_from_numpy(cot, device="cpu")
     port = {
         "fetch": tmk.replay_vjp(job, ut, vt, draws.torch,
-                                torch.from_numpy(records.astype(np.int32)), tcot),
+                                torch.from_numpy(records).to(tmk.record_dtype(js.num_objects)),
+                                tcot),
         "replay": tmk.record_replay_vjp(job, ut, vt, draws.torch, tcot),
         "direct": tmk.direct_vjp(job, ut, vt, draws.torch, tcot),
     }
@@ -620,7 +643,8 @@ def test_backward_launch_takes_more_shadow_samples_than_a_mask_holds(monkeypatch
         raise ReachedTheLibrary
 
     monkeypatch.setattr(tmk, "_bwd_kernel_function", kernel_function)
-    recs = torch.zeros((tmk.record_layout(job.config, True), 12, 40), dtype=torch.int32)
+    recs = torch.zeros((tmk.record_layout(job.config, True), 12, 40),
+                       dtype=tmk.record_dtype(len(job.obj_type)))
     for kernel in tmk.BWD_KERNELS:
         with pytest.raises(ReachedTheLibrary):
             tmk._launch_bwd(kernel, job, 1, 0, recs if kernel == "fetch" else None,
@@ -742,3 +766,64 @@ def test_cuda_backward_kernels_take_more_shadow_samples_than_a_mask_holds(kernel
     assert ((g_rows - w_rows).abs() <= ROWS_RTOL * w_rows.abs() + ROWS_ATOL * scale).all()
     assert ((g_cam - w_cam).abs() <= CAM_RTOL * w_cam.abs() + 5e-4 * w_cam.abs().max()).all()
     assert w_rows[list(lights), 12:15].abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["scene_2", "one_hundred_thirty_objects"])
+def test_cuda_fetch_backward_from_narrow_planes_is_close_to_direct(name, cuda_device):
+    """K3 at both widths of its index planes (int8 on scene_2, int16 at 130
+    objects) against the backward that keeps no planes ("direct": K5, or
+    K4 above 48 objects), which walks the same paths again."""
+    specs = parse_objects(SCENE_2_TEXT) if name == "scene_2" \
+        else random_objects(130, seed=5, lights=(7,))
+    scene = Scene.from_objects(specs, device=cuda_device)
+    cfg = TCfg(bounces=3, shadow_samples=2)
+    job = tmk.make_tile_job(scene, TCamera.default(cuda_device), 256, 144, cfg)
+    _, records = tmk.run_tiles(job, seed=14, record=True)
+    assert records.dtype == (torch.int8 if name == "scene_2" else torch.int16)
+    cot = _cotangents((144, 256)).to(cuda_device)
+    g_rows, g_cam = tmk.run_bwd(job, 14, 0, records, cot)
+    direct = dataclasses.replace(job, config=cfg.replace(bwd_mode="direct"))
+    w_rows, w_cam = tmk.run_bwd(direct, 14, 0, None, cot)
+    torch.cuda.synchronize()
+    scale = w_rows.abs().amax(dim=0, keepdim=True)
+    assert ((g_rows - w_rows).abs() <= ROWS_RTOL * w_rows.abs() + ROWS_ATOL * scale).all()
+    assert ((g_cam - w_cam).abs() <= CAM_RTOL * w_cam.abs() + 5e-4 * w_cam.abs().max()).all()
+    assert w_rows.abs().max() > 0
+
+
+def _saved_index_planes(out):
+    """The integer tensors the TilesFunction nodes of `out`'s graph saved:
+    their winner-index planes."""
+    seen, stack, planes = set(), [out.grad_fn], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "TilesFunctionBackward":
+            planes += [t for t in node.saved_tensors
+                       if t is not None and not t.dtype.is_floating_point]
+        stack += [n for n, _ in node.next_functions]
+    return planes
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_a_differentiated_frame_keeps_one_byte_an_index(device):
+    """A differentiated 8-sample scene_2 frame (10 bounces, no light: 10
+    planes a sample) keeps 8 * 10 * H * W bytes of index planes until
+    backward(), one int8 entry a pixel and trace call."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no interpret mode")
+    H, W = (96, 128) if device == "cuda" else (12, 16)
+    scene = Scene.from_objects(parse_objects(SCENE_2_TEXT), device=device)
+    leaf = dataclasses.replace(scene, albedo=scene.albedo.clone().requires_grad_())
+    img = tmk.render_image_cuda(leaf, TCamera.default(device), W, H, seed=2, spp=8,
+                                config=TCfg(), device=device)
+    planes = _saved_index_planes(img)
+    assert len(planes) == 8
+    assert all(p.dtype == torch.int8 and tuple(p.shape) == (10, H, W) for p in planes)
+    assert sum(p.numel() * p.element_size() for p in planes) == 8 * 10 * H * W
+    img.sum().backward()
+    assert leaf.albedo.grad is not None
+

@@ -121,7 +121,8 @@ def test_record_layout_order(name, has_light):
     planes, recs = tmk.run_tiles(job, seed=4, record=True)
     ns = 2 if has_light else 0
     assert tmk.record_layout(cfg, has_light) == 2 * (1 + ns) == recs.shape[0]
-    assert recs.dtype == torch.int32 and tuple(recs.shape[1:]) == (8, 32)
+    assert recs.dtype == tmk.record_dtype(ts.num_objects) == torch.int8
+    assert tuple(recs.shape[1:]) == (8, 32)
     assert planes.shape == (10, 8, 32)
     assert int(recs.min()) >= -1 and int(recs.max()) < ts.num_objects
     if has_light:
@@ -161,7 +162,8 @@ def test_plain_records_follow_the_dead_lane_rule(name):
         assert job.single_emissive == -1 and job.ns == 3
     raw = _raw_records(job, seed=7)
     planes, recs = tmk.run_tiles_plain(job, 7, record=True)
-    assert recs.shape == raw.shape and recs.dtype == torch.int32
+    assert recs.shape == raw.shape and recs.dtype == tmk.record_dtype(len(job.obj_type))
+    recs = recs.to(torch.int32)  # compared with the tracer's entries, widened back
     per = 1 + job.ns
     overwritten = 0
     for b in range(job.config.bounces):
@@ -177,6 +179,83 @@ def test_plain_records_follow_the_dead_lane_rule(name):
     print(f"{name}: {overwritten} shadow entries of dead lanes overwritten")
     assert tmk.dead_lane_rule(recs, job.ns).equal(recs)  # applying it again changes nothing
     assert planes.equal(tmk.run_tiles_plain(job, 7)[0])
+
+
+@pytest.mark.parametrize("n_objects,dtype", [(1, torch.int8), (127, torch.int8),
+                                              (128, torch.int16), (32767, torch.int16),
+                                              (32768, torch.int32)])
+def test_record_dtype_is_the_narrowest_that_holds_every_index(n_objects, dtype):
+    got = tmk.record_dtype(n_objects)
+    assert got == dtype
+    info = torch.iinfo(got)
+    assert info.min <= -1 and n_objects - 1 <= info.max  # the miss and the last object
+    if got != torch.int8:  # the narrowest type whose range holds the count itself
+        assert n_objects > torch.iinfo({torch.int16: torch.int8,
+                                        torch.int32: torch.int16}[got]).max
+
+
+NARROW_SCENES = {
+    "scene_2": (lambda: parse_objects(SCENE_2_TEXT), torch.int8),
+    "one_hundred_thirty_objects": (lambda: random_objects(130, seed=5, lights=(7,)), torch.int16),
+}
+
+
+@pytest.mark.parametrize("name", list(NARROW_SCENES))
+def test_plain_records_are_narrow_and_equal_the_int32_tracers(name):
+    """run_tiles_plain(record=True) keeps record_dtype's width, and its
+    entries are the int32 tracer's after the dead-lane rule, every one."""
+    make, dtype = NARROW_SCENES[name]
+    _, ts = U.scene_pair(make())
+    job = tmk.make_tile_job(ts, TCamera.default("cpu"), 40, 24, TCfg(bounces=3, shadow_samples=2))
+    raw = _raw_records(job, seed=6)
+    _, recs = tmk.run_tiles_plain(job, 6, record=True)
+    assert recs.dtype == dtype == tmk.record_dtype(ts.num_objects)
+    want = tmk.dead_lane_rule(raw, job.ns)
+    assert want.dtype == torch.int32 and recs.shape == want.shape
+    assert torch.equal(recs.to(torch.int32), want)
+    assert int(want.max()) > 0 and int(want.min()) == -1
+    if dtype == torch.int16:  # indices past int8's range are kept
+        assert int(want.max()) > 127
+
+
+def test_fetch_budget_counts_the_bytes_of_an_index():
+    """effective_bwd_mode weighs the index planes at record_dtype's width:
+    a frame that 4 bytes an index would push past the budget stays in
+    "fetch" at one byte, and goes to "replay" only past one byte's count."""
+    scene = U.scene_pair(parse_objects(SCENE_2_TEXT))[1]
+    cfg = TCfg(bounces=10)
+    entries = 8 * tmk.record_layout(cfg, False) * 64 * 48  # spp * n_rec * H * W
+    assert tmk.record_dtype(scene.num_objects).itemsize == 1
+    real = tmk.FETCH_RECORD_BUDGET_BYTES
+    try:
+        tmk.FETCH_RECORD_BUDGET_BYTES = 2 * entries  # under the 4 * entries of int32
+        assert tmk.effective_bwd_mode(scene, cfg, 64, 48, 8) == "fetch"
+        tmk.FETCH_RECORD_BUDGET_BYTES = entries - 1
+        assert tmk.effective_bwd_mode(scene, cfg, 64, 48, 8) == "replay"
+    finally:
+        tmk.FETCH_RECORD_BUDGET_BYTES = real
+
+
+def test_the_recording_span_counts_the_bytes_of_its_index_planes():
+    """kernel.megakernel_fwd_record counts `index_bytes`, which over
+    n_rec * H * W gives the width in force; the plain launch counts none."""
+    from ray_tracing_tpu_torch.utils import profiling
+
+    for make, width in ((lambda: parse_objects(ROOM_TEXT), 1),
+                        (lambda: random_objects(130, seed=5, lights=(7,)), 2)):
+        _, ts = U.scene_pair(make())
+        job = tmk.make_tile_job(ts, TCamera.default("cpu"), 16, 8,
+                                TCfg(bounces=2, shadow_samples=2))
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            _, recs = tmk.run_tiles(job, seed=3, record=True)
+            tmk.run_tiles(job, seed=3)
+        spans = [(name, counts) for name, *_, counts in profiling.recorded()]
+        profiling.clear()
+        n_rec = tmk.record_layout(job.config, True)
+        assert spans == [("kernel.megakernel_fwd_record", {"index_bytes": n_rec * 8 * 16 * width}),
+                         ("kernel.megakernel_fwd", {})]
+        assert recs.numel() * recs.element_size() == n_rec * 8 * 16 * width == tmk.record_bytes(job)
 
 
 def test_shadow_samples_zero_is_the_no_light_path():
@@ -255,3 +334,29 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
     ok = ((planes - want_p).abs() <= 1e-4).all(dim=0)
     assert ok.float().mean() >= 0.995
     assert (recs == want_r).all(dim=0).float().mean() >= 0.995
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(NARROW_SCENES))
+def test_cuda_recording_kernel_writes_narrow_planes(name, cuda_device):
+    """K2 at both widths (int8 on scene_2, int16 at 130 objects): its planes
+    have run_tiles_plain's dtype and entries, and its span counts the bytes
+    it wrote."""
+    from ray_tracing_tpu_torch.utils import profiling
+
+    make, dtype = NARROW_SCENES[name]
+    _, ts = U.scene_pair(make())
+    job = tmk.make_tile_job(ts.to(cuda_device), TCamera.default(cuda_device), 256, 144,
+                            TCfg(bounces=3, shadow_samples=2))
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        planes, recs = tmk.run_tiles(job, seed=12, record=True)
+        torch.cuda.synchronize()
+    counted = [c for n, *_, c in profiling.recorded() if n == "kernel.megakernel_fwd_record"]
+    profiling.clear()
+    want_p, want_r = tmk.run_tiles_plain(job, seed=12, record=True)
+    assert recs.dtype == want_r.dtype == dtype
+    assert counted == [{"index_bytes": recs.numel() * dtype.itemsize}]
+    assert ((planes - want_p).abs() <= 1e-4).all(dim=0).float().mean() >= 0.995
+    assert (recs == want_r).all(dim=0).float().mean() >= 0.995
+

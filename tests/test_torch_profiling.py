@@ -59,17 +59,19 @@ def tree(spans):
 
 
 def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H, fused=True,
-               soft=False):
+               soft=False, kernel_counts=None):
     """(name, parent, counts) of the spans of one SPP-sample W x H frame
-    whose render_image is span number `root`, inside span `parent`. With
+    whose render_image is span number `root`, inside span `parent`; the
+    kernel's span counts `kernel_counts` (none by default). With
     `fused` (kernels/megakernel.py::fused_sky_compose) a sample's sky lookup
     and compose are one span "compose" that counts the texels; with `soft`
     the average holds the soft-silhouette composite's span, which counts
     scene_2's three objects and the frame's pixels."""
+    k = (kernel, root, kernel_counts or {})
     if fused:
-        sample = [(kernel, root, {}), ("compose", root, {"texels": texels})]
+        sample = [k, ("compose", root, {"texels": texels})]
     else:
-        sample = [(kernel, root, {}), ("sky_lookup", root, {"texels": texels}),
+        sample = [k, ("sky_lookup", root, {"texels": texels}),
                   ("compose", root, {})]
     spans = ([("render_image", parent, {"pixels": W * H, "samples": SPP}),
               ("tile_job", root, {})] + sample * SPP + [("average", root, {})])
@@ -115,7 +117,11 @@ def test_train_step_records_its_span_tree(mode, fwd):
     with torch.profiler.profile(activities=CPU):
         step(params, target, 5)
     head = [("train_step", -1, {}), ("step.params", 0, {}), ("step.forward", 0, {})]
-    head += frame_tree(root=3, parent=2, kernel=fwd) + [("step.loss", 0, {})]
+    # the recording launch counts the bytes of its index planes: scene_2 has
+    # no light, so 2 planes (one a bounce) of one byte a pixel (3 objects)
+    counts = {"index_bytes": 2 * H * W} if mode == "fetch" else None
+    head += frame_tree(root=3, parent=2, kernel=fwd, kernel_counts=counts)
+    head += [("step.loss", 0, {})]
     # each sample's compose adjoint, then its megakernel's backward
     want = (head + [("step.backward", 0, {})]
             + [("kernel.sky_compose_adjoint", len(head), {}),

@@ -442,8 +442,9 @@ def test_tiles_function_keeps_index_planes_in_fetch_only(mode, monkeypatch):
     planes, _ = tmk.run_tiles_grad(dataclasses.replace(job, rows=rows), seed=3)
     saved = [t for t in planes.grad_fn.saved_tensors if t is not None]
     assert calls == [mode == "fetch"]
-    assert any(t.dtype == torch.int32 for t in saved) == (mode == "fetch")
-    assert sum(t.numel() for t in saved if t.dtype != torch.int32) == rows.numel() + 16
+    index = tmk.record_dtype(len(job.obj_type))  # int8: the room's 9 objects
+    assert any(t.dtype == index for t in saved) == (mode == "fetch")
+    assert sum(t.numel() for t in saved if t.dtype != index) == rows.numel() + 16
     # the planes are the non-recording forward's either way, and backward runs
     want, _ = tmk.run_tiles_plain(job, 3)
     assert planes.detach().equal(want)

@@ -229,14 +229,18 @@ def test_effective_bwd_mode_boundary_and_residual_free_modes(monkeypatch):
     want = {spp: albedo_grad(cfg, spp) for spp in (1, 3)}  # fetch, within the budget
 
     n_rec = tmk.record_layout(cfg, True)
-    need = 2 * n_rec * 8 * 16 * 4
+    assert tmk.record_dtype(ts.num_objects) == torch.int8  # one byte an index
+    need = 2 * n_rec * 8 * 16 * 1
     monkeypatch.setattr(tmk, "FETCH_RECORD_BUDGET_BYTES", need)
     assert tmk.effective_bwd_mode(ts, cfg, 16, 8, 2) == "fetch"
     assert tmk.effective_bwd_mode(ts, cfg, 16, 8, 3) == "replay"
     assert tmk.effective_bwd_mode(ts, cfg.replace(bwd_mode="direct"), 16, 8, 3) == "direct"
-    # a 1024-object scene stays "fetch": the budget is the only rule
+    # a 1080-object scene keeps two bytes an index (int16), so the same
+    # budget holds half its samples: the bytes are the only rule
     many = dataclasses.replace(ts, obj_type=ts.obj_type * 120)
-    assert tmk.effective_bwd_mode(many, cfg, 16, 8, 2) == "fetch"
+    assert tmk.record_dtype(many.num_objects) == torch.int16
+    assert tmk.effective_bwd_mode(many, cfg, 16, 8, 1) == "fetch"
+    assert tmk.effective_bwd_mode(many, cfg, 16, 8, 2) == "replay"
     # no light: fewer planes, so more samples fit
     _, s2 = U.scene_pair(parse_objects(SCENE_2_TEXT))
     assert tmk.effective_bwd_mode(s2, cfg, 16, 8, 6) == "fetch"
