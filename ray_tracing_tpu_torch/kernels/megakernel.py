@@ -140,7 +140,7 @@ from ray_tracing_tpu_torch.ops.sampling import PhiloxDraws, global_pixel_index
 from ray_tracing_tpu_torch.ops.vec import NORMALIZE_EPS, Vec3, div_scalar, fresnel_schlick
 from ray_tracing_tpu_torch.render.camera import Camera, camera_pack, pixel_grid
 from ray_tracing_tpu_torch.scene.types import OBJ_SPHERE, SCENE_COLS, Scene, light_origin_from
-from ray_tracing_tpu_torch.utils.profiling import span
+from ray_tracing_tpu_torch.utils.profiling import recording, span
 
 PLANE_NAMES = ("r", "g", "b", "sx", "sy", "sz", "cr", "cg", "cb", "miss")
 KERNEL_LIBRARY = "megakernel_fwd"
@@ -793,16 +793,28 @@ def record_bytes(job: TileJob) -> int:
     return n_rec * job.height * job.width * record_dtype(len(job.obj_type)).itemsize
 
 
+def fwd_span_counts(job: TileJob, record: bool) -> dict:
+    """What a forward launch's span counts: its `pixels`, the scene's
+    `objects`, the `shadow_samples` a bounce (0 with next-event estimation
+    off), `occlusion` (1 where the shadow rays take the sole emitter's
+    occlusion trace, 0 for the full scan or none) and, for the recording
+    launch, `index_bytes`, the bytes of index planes it writes
+    (record_bytes). single_emissive walks every object, so run_tiles asks
+    for these only while spans are kept."""
+    counts = {"pixels": job.width * job.height, "objects": len(job.obj_type),
+              "shadow_samples": job.ns,
+              "occlusion": int(job.ns > 0 and job.single_emissive >= 0)}
+    if record:
+        counts["index_bytes"] = record_bytes(job)
+    return counts
+
+
 def run_tiles(job: TileJob, seed: int, row0: int = 0, record: bool = False):
     """One sample per pixel: the CUDA kernel for a job on the card, the
     plain version for a job on the CPU. Nothing else decides between them.
-    The recording launch's span counts `index_bytes`, the bytes of index
-    planes it writes (record_bytes)."""
-    if record:
-        tiles_span = span("kernel.megakernel_fwd_record", index_bytes=record_bytes(job))
-    else:
-        tiles_span = span("kernel.megakernel_fwd")
-    with tiles_span:
+    The launch's span counts fwd_span_counts."""
+    counts = fwd_span_counts(job, record) if recording() else {}
+    with span("kernel.megakernel_fwd_record" if record else "kernel.megakernel_fwd", **counts):
         if job.rows.device.type == "cuda":
             return _launch_fwd(job, seed, row0, record)
         if job.rows.device.type != "cpu":

@@ -23,11 +23,16 @@ Quirks of the reference renderer's parser that are kept on purpose:
   must lie in [0,1]; cube size components must be >= 0.
 * radius/center belong to spheres only, origin/size to cubes only.
 * Objects beyond MAX_OBJECTS are dropped with a warning.
+
+``write_scene_string`` goes the other way, from ObjectSpecs to a text that
+parses back to the same float32 scene.
 """
 
 from __future__ import annotations
 
 import sys
+
+import numpy as np
 
 from ray_tracing_tpu_torch.scene.types import (
     DEFAULT_CUBE_ORIGIN,
@@ -243,6 +248,63 @@ def parse_scene_string(src: str, device=None) -> Scene:
     device=None means the card. A text that does not parse raises its
     SceneParseError before the device is looked at."""
     return Scene.from_objects(parse_objects(src), device=device)
+
+
+def _fixed(x: float) -> str:
+    """`x` rounded to float32, in fixed point (the language has no
+    exponents): the fewest digits that name that float32, or, where
+    reading them as a double and rounding that to float32 lands elsewhere,
+    the double's own shortest digits, which name the float32 exactly."""
+    v = np.float32(x)
+    if not np.isfinite(v):
+        raise ValueError(f"{x} has no fixed-point form")
+    text = np.format_float_positional(v, unique=True, trim="-")
+    if np.float32(float(text)) != v:
+        text = np.format_float_positional(np.float64(v), unique=True, trim="-")
+    return text
+
+
+def _value(v) -> str:
+    if isinstance(v, (tuple, list)):
+        return "{" + " ".join(_fixed(x) for x in v) + "}"
+    return _fixed(v)
+
+
+def _same(a, b) -> bool:
+    """Whether two values are one float32 value (componentwise)."""
+    return bool(np.array_equal(np.float32(a), np.float32(b)))
+
+
+# Material properties in the order written, with their names as written:
+# the parser skips 3 characters after "albedo" and "metallic" whatever they
+# are, so those names take 4 spaces.
+_WRITTEN = (("albedo", "albedo    "), ("roughness", "roughness "),
+            ("reflectance", "reflectance "), ("metallic", "metallic    "),
+            ("emission_power", "emission_power "), ("emission_color", "emission_color "))
+
+
+def write_scene_string(objects: list[ObjectSpec]) -> str:
+    """The scene text of `objects`, one line an object: its geometry, then
+    each material value that differs from the parser's default. Every
+    number parses back to the float32 that Scene.from_objects makes of it,
+    so parse_scene_string of the text packs the same scene bit for bit."""
+    defaults = ObjectSpec(kind="sphere")
+    lines = []
+    for o in objects:
+        if o.kind == "sphere":
+            if not (_same(o.p1[0], o.p1[1]) and _same(o.p1[0], o.p1[2])):
+                raise ValueError(f"a sphere takes one radius, not {o.p1}")
+            words = ["sphere", "center", _value(o.p0), "radius", _value(o.p1[0])]
+        elif o.kind == "cube":
+            words = ["cube", "origin", _value(o.p0), "size", _value(o.p1)]
+        else:
+            raise ValueError(f"unknown object kind {o.kind!r}")
+        for field, name in _WRITTEN:
+            v = getattr(o, field)
+            if not _same(v, getattr(defaults, field)):
+                words.append(name + _value(v))
+        lines.append(" ".join(words))
+    return "".join(line + "\n" for line in lines)
 
 
 def parse_scene_file(path: str, device=None) -> Scene:

@@ -1,6 +1,6 @@
 """Scenes that need no file: the three-sphere scene_2, a nine-object lit
-room, the four-object scene of the pose search, and seeded random scenes of
-any size.
+room, the four-object scene of the pose search, seeded random scenes of
+any size, and the 1,024-object lit scene of the benchmark's largest cell.
 
 They serve the tests, the smoke script and anyone who wants a render
 without writing a scene file first.
@@ -107,4 +107,40 @@ def random_objects(n: int, seed: int = 1, lights=(7,)) -> list[ObjectSpec]:
                 metallic=float(rng.uniform() < 0.2),
                 emission_power=2.0 if i in lights else 0.0,
             ))
+    return objs
+
+
+def large_scene_objects(n: int) -> list[ObjectSpec]:
+    """The scene the upstream's MAX_OBJECTS (1024, src/scene.h:3) exists
+    for, as the JAX package's large-scene benchmark lays it out
+    (benchmarks/large_scene.py::make_scene): n - 1 seeded random objects
+    in a 30^3 box, every third one a cube, then one emissive sphere, the
+    only light: radius 3 at (0, 20, 0), power 5, colour (1, 0.9, 0.8). The
+    draws come from np.random.default_rng(n) in that benchmark's order, so
+    the packed scene equals its own bit for bit."""
+    rng = np.random.default_rng(n)
+    objs = []
+    for i in range(n - 1):
+        if i % 3 == 0:
+            objs.append(ObjectSpec(
+                kind="cube",
+                p0=tuple(float(x) for x in rng.uniform(-15, 15, 3)),
+                p1=tuple(float(x) for x in rng.uniform(0.3, 1.2, 3)),
+                albedo=tuple(float(x) for x in rng.uniform(0.2, 1, 3)),
+                roughness=float(rng.uniform()),
+            ))
+        else:
+            objs.append(ObjectSpec(
+                kind="sphere",
+                p0=tuple(float(x) for x in rng.uniform(-15, 15, 3)),
+                p1=(float(rng.uniform(0.2, 0.8)),) * 3,
+                albedo=tuple(float(x) for x in rng.uniform(0.2, 1, 3)),
+                roughness=float(rng.uniform()),
+                reflectance=float(rng.uniform()),
+                metallic=float(rng.integers(0, 2)),
+            ))
+    objs.append(ObjectSpec(
+        kind="sphere", p0=(0.0, 20.0, 0.0), p1=(3.0,) * 3,
+        emission_power=5.0, emission_color=(1.0, 0.9, 0.8),
+    ))
     return objs

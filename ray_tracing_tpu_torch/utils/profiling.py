@@ -160,6 +160,12 @@ RECORDER = SpanRecorder()
 _OFF = contextlib.nullcontext()
 
 
+def recording() -> bool:
+    """Whether spans are kept now: a torch profiler runs in the process.
+    A caller whose counts cost work computes them only then."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str, **counts):
     """A context manager that marks a layer of the program as `name`, with
     integer `counts` the host already knows (a frame's pixels and samples,

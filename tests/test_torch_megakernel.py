@@ -238,11 +238,12 @@ def test_fetch_budget_counts_the_bytes_of_an_index():
 
 def test_the_recording_span_counts_the_bytes_of_its_index_planes():
     """kernel.megakernel_fwd_record counts `index_bytes`, which over
-    n_rec * H * W gives the width in force; the plain launch counts none."""
+    n_rec * H * W gives the width in force; the plain launch counts none,
+    and both count the pixels, objects, shadow samples and occlusion."""
     from ray_tracing_tpu_torch.utils import profiling
 
-    for make, width in ((lambda: parse_objects(ROOM_TEXT), 1),
-                        (lambda: random_objects(130, seed=5, lights=(7,)), 2)):
+    for make, width, n in ((lambda: parse_objects(ROOM_TEXT), 1, 9),
+                           (lambda: random_objects(130, seed=5, lights=(7,)), 2, 130)):
         _, ts = U.scene_pair(make())
         job = tmk.make_tile_job(ts, TCamera.default("cpu"), 16, 8,
                                 TCfg(bounces=2, shadow_samples=2))
@@ -253,8 +254,11 @@ def test_the_recording_span_counts_the_bytes_of_its_index_planes():
         spans = [(name, counts) for name, *_, counts in profiling.recorded()]
         profiling.clear()
         n_rec = tmk.record_layout(job.config, True)
-        assert spans == [("kernel.megakernel_fwd_record", {"index_bytes": n_rec * 8 * 16 * width}),
-                         ("kernel.megakernel_fwd", {})]
+        # one light and two shadow samples: the occlusion trace
+        launch = {"pixels": 8 * 16, "objects": n, "shadow_samples": 2, "occlusion": 1}
+        assert spans == [("kernel.megakernel_fwd_record",
+                          {**launch, "index_bytes": n_rec * 8 * 16 * width}),
+                         ("kernel.megakernel_fwd", launch)]
         assert recs.numel() * recs.element_size() == n_rec * 8 * 16 * width == tmk.record_bytes(job)
 
 
@@ -356,7 +360,8 @@ def test_cuda_recording_kernel_writes_narrow_planes(name, cuda_device):
     profiling.clear()
     want_p, want_r = tmk.run_tiles_plain(job, seed=12, record=True)
     assert recs.dtype == want_r.dtype == dtype
-    assert counted == [{"index_bytes": recs.numel() * dtype.itemsize}]
+    assert counted == [{**tmk.fwd_span_counts(job, record=False),
+                        "index_bytes": recs.numel() * dtype.itemsize}]
     assert ((planes - want_p).abs() <= 1e-4).all(dim=0).float().mean() >= 0.995
     assert (recs == want_r).all(dim=0).float().mean() >= 0.995
 

@@ -21,7 +21,8 @@ from ray_tracing_tpu_torch.ops import cubemap as tcm
 from ray_tracing_tpu_torch.ops.vec import Vec3
 from ray_tracing_tpu_torch.render.camera import Camera
 from ray_tracing_tpu_torch.scene.parser import parse_scene_string
-from ray_tracing_tpu_torch.scene.synthetic import SCENE_2_TEXT
+from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
+from ray_tracing_tpu_torch.scene.types import Scene
 from ray_tracing_tpu_torch.utils import profiling
 
 W, H, SPP = 16, 12, 2
@@ -58,16 +59,22 @@ def tree(spans):
     return [(name, parent, counts) for name, _, _, _, parent, counts in spans]
 
 
+# What scene_2's forward launch counts: its pixels and three objects, and no
+# shadow ray (no light), so no occlusion trace either.
+SCENE_2_LAUNCH = {"pixels": W * H, "objects": 3, "shadow_samples": 0, "occlusion": 0}
+
+
 def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H, fused=True,
                soft=False, kernel_counts=None):
     """(name, parent, counts) of the spans of one SPP-sample W x H frame
     whose render_image is span number `root`, inside span `parent`; the
-    kernel's span counts `kernel_counts` (none by default). With
+    kernel's span counts `kernel_counts` (scene_2's SCENE_2_LAUNCH by
+    default). With
     `fused` (kernels/megakernel.py::fused_sky_compose) a sample's sky lookup
     and compose are one span "compose" that counts the texels; with `soft`
     the average holds the soft-silhouette composite's span, which counts
     scene_2's three objects and the frame's pixels."""
-    k = (kernel, root, kernel_counts or {})
+    k = (kernel, root, kernel_counts or SCENE_2_LAUNCH)
     if fused:
         sample = [k, ("compose", root, {"texels": texels})]
     else:
@@ -78,6 +85,53 @@ def frame_tree(root=0, parent=-1, kernel="kernel.megakernel_fwd", texels=W * H, 
     if soft:
         spans.append(("soft_silhouettes", root + len(spans) - 1, {"objects": 3, "pixels": W * H}))
     return spans
+
+
+def _launch_spans(scene, config, record):
+    """(name, counts) of the forward launch spans of one SPP-sample frame of
+    `scene` under a profiler; with `record`, of the recording launch that
+    a fetch-mode gradient takes."""
+    job = mk.make_tile_job(scene, Camera.default("cpu"), W, H, config)
+    with torch.profiler.profile(activities=CPU):
+        for s in range(SPP):
+            mk.run_tiles(job, s, record=record)
+    return [(name, counts) for name, _, _, _, _, counts in profiling.recorded()]
+
+
+@pytest.mark.parametrize("record", [False, True], ids=["render", "record"])
+@pytest.mark.parametrize("scene,config,ns,occlusion", [
+    (lambda: parse_scene_string(SCENE_2_TEXT, device="cpu"), RenderConfig(), 0, 0),
+    (lambda: parse_scene_string(ROOM_TEXT, device="cpu"), RenderConfig(), 3, 1),
+    (lambda: Scene.from_objects(random_objects(40, seed=3, lights=(7, 8)), device="cpu"),
+     RenderConfig(shadow_samples=2), 2, 0),
+    (lambda: parse_scene_string(ROOM_TEXT, device="cpu"), RenderConfig(shadow_samples=0),
+     0, 0),
+], ids=["unlit", "one_light_occlusion", "two_lights_full_scan", "nee_off"])
+def test_launch_spans_count_pixels_objects_shadow_samples_and_occlusion(
+        scene, config, ns, occlusion, record):
+    """Each forward launch's span counts its pixels, the scene's objects,
+    the shadow samples a bounce and whether its shadow rays take the sole
+    emitter's occlusion trace (1) or the full scan (0); a recording launch
+    also counts its index planes' bytes."""
+    sc, config = scene(), config.replace(bounces=2)
+    job = mk.make_tile_job(sc, Camera.default("cpu"), W, H, config)
+    want = {"pixels": W * H, "objects": sc.num_objects, "shadow_samples": ns,
+            "occlusion": occlusion}
+    name = "kernel.megakernel_fwd"
+    if record:
+        want["index_bytes"] = mk.record_bytes(job)
+        name += "_record"
+    assert _launch_spans(sc, config, record) == [(name, want)] * SPP
+
+
+def test_untraced_launches_compute_no_span_counts(monkeypatch):
+    """Without a profiler run_tiles asks for no counts: single_emissive's
+    walk over the objects is paid only while spans are kept."""
+    def refuse(*a, **k):
+        raise AssertionError("span counts computed with no profiler running")
+
+    monkeypatch.setattr(mk, "fwd_span_counts", refuse)
+    frame()
 
 
 def test_no_profiler_records_nothing():
@@ -117,9 +171,9 @@ def test_train_step_records_its_span_tree(mode, fwd):
     with torch.profiler.profile(activities=CPU):
         step(params, target, 5)
     head = [("train_step", -1, {}), ("step.params", 0, {}), ("step.forward", 0, {})]
-    # the recording launch counts the bytes of its index planes: scene_2 has
-    # no light, so 2 planes (one a bounce) of one byte a pixel (3 objects)
-    counts = {"index_bytes": 2 * H * W} if mode == "fetch" else None
+    # the recording launch counts the bytes of its index planes too: scene_2
+    # has no light, so 2 planes (one a bounce) of one byte a pixel (3 objects)
+    counts = {**SCENE_2_LAUNCH, "index_bytes": 2 * H * W} if mode == "fetch" else None
     head += frame_tree(root=3, parent=2, kernel=fwd, kernel_counts=counts)
     head += [("step.loss", 0, {})]
     # each sample's compose adjoint, then its megakernel's backward

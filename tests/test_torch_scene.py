@@ -1,7 +1,12 @@
 """Scene layer of the PyTorch port against the JAX package: parser, packed
-rows, numpy round trip."""
+rows, numpy round trip, the scene writer and the 1,024-object scene of the
+benchmark's largest cell."""
 
 import dataclasses
+import importlib.util
+import json
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -14,8 +19,13 @@ from ray_tracing_tpu.scene import parser as jparser
 from ray_tracing_tpu.scene.types import Scene as JScene
 
 from ray_tracing_tpu_torch.scene import parser as tparser
-from ray_tracing_tpu_torch.scene.synthetic import ROOM_TEXT, SCENE_2_TEXT, random_objects
-from ray_tracing_tpu_torch.scene.types import Scene as TScene
+from ray_tracing_tpu_torch.scene.synthetic import (
+    ROOM_TEXT,
+    SCENE_2_TEXT,
+    large_scene_objects,
+    random_objects,
+)
+from ray_tracing_tpu_torch.scene.types import ObjectSpec as TObjectSpec, Scene as TScene
 
 import torch_port_util as U
 
@@ -145,3 +155,88 @@ def test_config_fields_match_jax():
     assert dataclasses.asdict(JCfg()) == {**dataclasses.asdict(TCfg()), **jax_only}
     assert not set(jax_only) & {f.name for f in dataclasses.fields(TCfg)}
     assert TCfg().replace(bounces=3).bounces == 3 and DEFAULT_CONFIG == TCfg()
+
+
+# -- the benchmark's 1,024-object scene and the scene writer -----------------
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _jax_large_scene(n):
+    """benchmarks/large_scene.py::make_scene(n), the JAX package's own
+    layout of the scene the upstream's MAX_OBJECTS exists for."""
+    spec = importlib.util.spec_from_file_location("large_scene_benchmark",
+                                                  REPO / "benchmarks" / "large_scene.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make_scene(n)
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float32)).view(np.int32)
+
+
+def _assert_same_scene(a, b):
+    """Two packed scenes (either package's) equal field by field, bit for
+    bit, with the same kinds, light and emitters."""
+    assert a.obj_type == b.obj_type and a.light_index == b.light_index
+    assert tuple(a.emissive) == tuple(b.emissive)
+    for f in U.SCENE_LEAVES:
+        x, y = getattr(a, f), getattr(b, f)
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+        np.testing.assert_array_equal(_bits(x), _bits(y), err_msg=f)
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_large_scene_objects_equal_the_jax_benchmarks_scene(n):
+    objs = large_scene_objects(n)
+    assert len(objs) == n and sum(o.emission_power > 0 for o in objs) == 1
+    _assert_same_scene(TScene.from_objects(objs, device="cpu"), _jax_large_scene(n))
+
+
+@pytest.mark.parametrize("make", [lambda: large_scene_objects(64), lambda: large_scene_objects(1024),
+                                  lambda: tparser.parse_objects(ROOM_TEXT),
+                                  lambda: random_objects(60, seed=4, lights=(7, 20))],
+                         ids=["large64", "large1024", "room", "random60"])
+def test_written_scene_parses_back_bit_for_bit(make):
+    """write_scene_string's text packs the same float32 scene through the
+    port's parser, the JAX package's parser and the benchmark's plain
+    reference (portbench/reference/pathtracer.py::parse_scene)."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from portbench.reference import pathtracer as pt
+
+    objs = make()
+    text = tparser.write_scene_string(objs)
+    want = TScene.from_objects(objs, device="cpu")
+    _assert_same_scene(tparser.parse_scene_string(text, device="cpu"), want)
+    _assert_same_scene(JScene.from_objects(jparser.parse_objects(text)), want)
+    ref = pt.make_scene(text, "cpu")
+    assert ref.is_sphere == tuple(t == 1 for t in want.obj_type) and ref.light == want.light_index
+    for f in U.SCENE_LEAVES:
+        np.testing.assert_array_equal(_bits(ref.fields[f]), _bits(getattr(want, f).numpy()),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("number", [0.1, -15.0, 1e-7, 2.5e-30, 14.999999, 1 / 3, -0.0, 1234567.0])
+def test_written_numbers_are_fixed_point_and_name_their_float32(number):
+    text = tparser.write_scene_string([TObjectSpec(kind="sphere", p1=(number,) * 3)])
+    radius = text.split("radius ")[1].split()[0]
+    assert "e" not in radius.lower() and not radius.startswith(".")
+    assert _bits(float(radius)) == _bits(number)
+
+
+def test_the_writer_refuses_what_the_language_cannot_say():
+    with pytest.raises(ValueError, match="one radius"):
+        tparser.write_scene_string([TObjectSpec(kind="sphere", p1=(1.0, 2.0, 1.0))])
+    with pytest.raises(ValueError, match="fixed-point"):
+        tparser.write_scene_string([TObjectSpec(kind="cube", p0=(float("inf"), 0, 0))])
+
+
+def test_objects1024_config_holds_the_written_large_scene():
+    """The benchmark's objects1024 configuration renders the writer's text of
+    large_scene_objects(1024), and nothing else of it is cut."""
+    conf = json.loads((REPO / "portbench" / "configs" / "objects1024.json").read_text())
+    assert conf["scene"] == tparser.write_scene_string(large_scene_objects(1024))
+    assert (conf["width"], conf["height"], conf["reduced"]) == (1920, 1080, [])
