@@ -9,6 +9,9 @@ import torch
 from portbench.reference import pathtracer as pt
 
 _MASK64 = (1 << 64) - 1
+# Rows of one face that make_sky fills at a time: 2 MiB an int32 temporary
+# at S = 2048, where the whole (6,S,S) table's temporaries took 512 MiB.
+SKY_ROWS = 256
 
 
 def mix(*words: int) -> int:
@@ -26,18 +29,23 @@ def mix(*words: int) -> int:
 def make_sky(sky: dict, device) -> torch.Tensor:
     """The packed (6*S*S,) int32 0x00RRGGBB cubemap of a configuration's
     "sky": kind "checker" is a face-tinted 4-texel checkerboard with a blue
-    ramp across each face, made on the device in a few calls."""
+    ramp across each face, made on the device into one table, SKY_ROWS rows
+    of one face at a time, so that no temporary is larger than SKY_ROWS*S."""
     if sky["kind"] != "checker":
         raise ValueError(f"unknown sky kind {sky['kind']!r}")
     s = sky["size"]
+    table = torch.empty((6, s, s), dtype=torch.int32, device=device)
     ar = torch.arange(s, dtype=torch.int32, device=device)
-    yy, xx = torch.meshgrid(ar, ar, indexing="ij")
-    check = (yy // 4 + xx // 4) % 2
+    xx = ar[None, :]
     blue = (xx * 255) // max(s - 1, 1)
-    face = torch.arange(6, dtype=torch.int32, device=device)[:, None, None]
-    red = torch.clamp(40 * face + 55 + 120 * check, 0, 255)
-    green = torch.clamp(255 - 30 * face - 100 * check, 0, 255)
-    return ((red << 16) | (green << 8) | blue).reshape(-1).contiguous()
+    for face in range(6):
+        for r0 in range(0, s, SKY_ROWS):
+            yy = ar[r0:r0 + SKY_ROWS, None]
+            check = (yy // 4 + xx // 4) % 2
+            red = torch.clamp(40 * face + 55 + 120 * check, 0, 255)
+            green = torch.clamp(255 - 30 * face - 100 * check, 0, 255)
+            table[face, r0:r0 + SKY_ROWS] = (red << 16) | (green << 8) | blue
+    return table.reshape(-1)
 
 
 def reference_frame(config: dict, sky_table: torch.Tensor, dtype=torch.float32) -> pt.Frame:

@@ -4,7 +4,7 @@ readers and limits; the port's plain frame equals the plain reference's
 bit for bit on the configuration cut to 64 objects (more than the 32 rows
 that the kernels stage in one warp); the K1 reader on a made-up slice; on
 the card, the cell runs correct and its traced run reports every new
-metric."""
+metric; its untraced run reports the window's frame_ms end to end."""
 
 import json
 import math
@@ -21,8 +21,7 @@ from portbench.tests.conftest import ROOT
 from portbench.trace import DeviceOp, Trace
 
 CELL = "objects1024.render"
-NEW_METRICS = ("frame_ms.objects1024", "device_idle_share.render.objects1024",
-               "k1_ps_per_pixel_object.objects1024")
+NEW_METRICS = ("device_idle_share.render.objects1024", "k1_ps_per_pixel_object.objects1024")
 
 
 def test_the_cell_is_found_by_name():
@@ -32,8 +31,9 @@ def test_the_cell_is_found_by_name():
     assert cfg["sky"] == {"kind": "checker", "size": 2048} and cfg["precision"] == "float32"
     assert cell.traffic["kind"] == "frames" and cell.traffic["spp"] == 2
     assert harness.load_kind(cell.traffic["kind"]).__name__ == "Load"
-    assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "peak_mem_GiB"}
+    assert {m["name"] for m in cell.end_to_end} == {"frame_ms", "setup_s", "peak_mem_GiB"}
     assert [m["name"] for m in cell.per_layer] == list(NEW_METRICS)
+    assert {m["moves"] for m in cell.per_layer} == {"frame_ms"}
     for m in cell.per_layer:
         assert callable(harness.metric_reader(ROOT, m["name"]))
     assert set(cell.limits) == {"frame_mean_abs_err", "frame_px_off_share"}
@@ -108,9 +108,41 @@ def test_the_k1_reader_divides_k1_time_by_pixels_and_objects(monkeypatch):
     monkeypatch.setattr(profiling, "recorded", lambda: spans(LAUNCH))
     # 5,000 ns of K1 over 2 launches of 100 pixels x 1,024 objects
     assert read(ctx(TRACE)) == pytest.approx(5000e-9 / (2 * 100 * 1024) * 1e12, rel=1e-12)
-    assert harness.metric_reader(ROOT, "frame_ms.objects1024")(ctx(TRACE)) == 61.5
     assert harness.metric_reader(ROOT, "device_idle_share.render.objects1024")(ctx(TRACE)) \
         == pytest.approx(100 / 6, rel=1e-12)
+
+
+class WindowOf61ms:
+    """A frames load whose window reads frame_ms 61.5, in place of the
+    card's, for the result line of an untraced run."""
+
+    def __init__(self, config, traffic, seed, device):
+        self.attempted, self.info = 0, {}
+
+    def setup(self):
+        pass
+
+    def window(self, win):
+        win.open()
+        self.attempted = 2
+        return {"frame_ms": 61.5, "frame_p95_ms": 120.0}
+
+    def release(self):
+        pass
+
+    def check(self):
+        return {"frame_mean_abs_err": 0.0, "frame_px_off_share": 0.0}
+
+
+def test_an_untraced_run_reports_the_windows_frame_ms_end_to_end(monkeypatch):
+    from portbench import run
+
+    monkeypatch.setattr(harness, "load_kind", lambda kind: WindowOf61ms)
+    result = run.run_cell(harness.find_cell(ROOT, CELL), 2**31 + 3, 0.1, False,
+                          torch.device("cpu"))
+    assert set(result["metrics"]) == {"frame_ms", "peak_mem_GiB", "setup_s"}
+    assert result["metrics"]["frame_ms"] == {"value": 61.5, "unit": "ms"}
+    assert "frame_ms.objects1024" not in result["metrics"] and result["correct"] is True
 
 
 def test_the_k1_reader_finds_nothing_on_a_program_without_the_counts(monkeypatch):
@@ -140,7 +172,8 @@ def _run(trace: int, seconds) -> dict:
 
 @pytest.mark.gpu
 def test_the_cell_runs_correct_on_the_card(card):
-    _run(0, 2)
+    result = _run(0, 2)
+    assert set(result["metrics"]) == {"frame_ms", "peak_mem_GiB", "setup_s"}
 
 
 @pytest.mark.gpu

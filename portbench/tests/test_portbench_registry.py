@@ -27,6 +27,23 @@ def test_cell_found_by_name(name):
     assert cell.limits, "every cell has its limits file"
 
 
+# The end-to-end metrics each cell reports: a time only where the card
+# paces the cell; the host paces the scene2 cells.
+REPORTED = {
+    "scene2.render": {"peak_mem_GiB", "setup_s"},
+    "scene2.train": {"peak_mem_GiB", "setup_s"},
+    "scene2.fit_invert": {"peak_mem_GiB", "setup_s"},
+    "objects1024.render": {"frame_ms", "peak_mem_GiB", "setup_s"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(REPORTED))
+def test_end_to_end_metrics_scoped_by_workloads(name):
+    cell = harness.find_cell(ROOT, name)
+    assert {m["name"] for m in cell.end_to_end} == REPORTED[name]
+    assert all(m["moves"] in REPORTED[name] for m in cell.per_layer)
+
+
 def test_new_config_mix_and_metric_are_found_by_name(tmp_path):
     """A later change adds a configuration, a mix and a per-layer metric as
     new files and new entries; nothing that is there changes."""
@@ -81,6 +98,8 @@ def test_benchmark_json_is_well_formed():
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+        if "workloads" in m:
+            assert m["workloads"] and set(m["workloads"]) <= cells, m["name"]
         e2e[m["name"]] = set(m.get("workloads", cells))
     assert "setup_s" in e2e
     for cell in cells:
